@@ -22,11 +22,18 @@ Phases (any failure exits non-zero and prints no result line):
    ``tier="interp"`` must give the identical decisions and map bytes;
    zero host fallbacks, zero warm uploads, kernel launches equal to the
    policy invocations;
-6. timing — per-decision latency of cuda beside interp, each main-path
-   kernel's device time beside its plain version and the launch floor.
+6. timing — per-decision latency of cuda beside interp and the host
+   floor (empty launch + 8-byte copy back); each main-path kernel's
+   device time (launches queued behind a spin kernel, so they run back
+   to back on the card) beside its bound, the device time of an empty
+   launch timed the same way, and beside its plain version; the bridge
+   call split into its host and device parts; a ``torch.profiler``
+   trace of a window of decisions for device time by kernel and the
+   device's busy share.
 
-The last two lines are the kernel table and the device record; the full
-record also goes to ``chiprun_out/chip_smoke.json``.
+The last three lines are the kernel table, the card's name and power
+limit, and the device record; the full record also goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -39,10 +46,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(1, os.path.join(ROOT, "tests"))   # torch_samples
 
 N_DECISIONS = 10_000
 N_SAMPLES = 8           # ctx samples per policy in the differential phase
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+N_TRACE = 200           # decisions in the profiler window
+TIMING_REPS = 300       # launches per device-time measurement
+SPIN_NS = 100_000_000   # the spin kernel's hold: far longer than queueing
 MAIN_PATH = ("bucket_tuner", "adapt_tuner", "adapt_profiler",
              "bucket_profiler")
 KERNEL_SOURCE = "src/repro_torch/core/csrc/policy_kernel.cuh"
@@ -81,9 +91,9 @@ def differential(kernel, device, seed: int) -> dict:
     import numpy as np
     import torch
 
+    import torch_samples as samples
     from repro_torch.core import torchc
     from repro_torch.core.vm import VM
-    from repro_torch.policies import samples
 
     prog = kernel.prog
     host = samples.make_maps(prog, np.random.default_rng(seed))
@@ -121,14 +131,36 @@ def differential(kernel, device, seed: int) -> dict:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
+def traffic(n: int, seed: int) -> list:
+    """``n`` seeded ``(coll, size, axis, latency_ns)`` steps of the main
+    path: 4 KiB - 1 GiB messages, an AllReduce / AllGather /
+    ReduceScatter mix over three axes."""
+    import numpy as np
+
+    from repro_torch.core.context import CollType
+
+    rng = np.random.default_rng(seed)
+    colls = rng.choice([CollType.ALL_REDUCE, CollType.ALL_GATHER,
+                        CollType.REDUCE_SCATTER], n)
+    sizes = np.left_shift(1, rng.integers(12, 31, n))        # 4 KiB..1 GiB
+    axes = rng.choice(["dp", "tp", "ep"], n)
+    lats = rng.integers(2_000, 3_000_000, n)
+    return [(int(c), int(s), str(a), int(t))
+            for c, s, a, t in zip(colls, sizes, axes, lats)]
+
+
+def feed(disp, d, latency_ns: int) -> None:
+    """The profiler feed that follows a decision's collective."""
+    disp.profiler_feed(d.comm_id, latency_ns, coll=d.coll,
+                       msg_size=d.size_bytes, channels=d.channels,
+                       algo=d.algo)
+
+
 def closed_loop(tier: str, n: int, seed: int = 11) -> dict:
     """The §5.3 closed loop on ``tier``: ``n`` decisions with profiler
     feeds between them and a warm ``link.replace()`` half way."""
-    import numpy as np
-
     from repro_torch.collectives import CollectiveDispatcher
     from repro_torch.core import PolicyRuntime
-    from repro_torch.core.context import CollType
     from repro_torch.policies import (adapt_profiler, adapt_tuner,
                                       bucket_profiler, bucket_tuner)
 
@@ -139,32 +171,22 @@ def closed_loop(tier: str, n: int, seed: int = 11) -> dict:
     rt.attach(adapt_profiler.program)
     rt.attach(bucket_profiler.program)
 
-    rng = np.random.default_rng(seed)
-    colls = rng.choice([CollType.ALL_REDUCE, CollType.ALL_GATHER,
-                        CollType.REDUCE_SCATTER], n)
-    sizes = np.left_shift(1, rng.integers(12, 31, n))        # 4 KiB..1 GiB
-    axes = rng.choice(["dp", "tp", "ep"], n)
-    lats = rng.integers(2_000, 3_000_000, n)
-
     bridges = [l.fn for s in rt.sections() for l in rt.chain(s)]
     for b in bridges:                       # counts start at 0 here
         if hasattr(b, "kernel"):
             b.kernel.launches = 0
     decisions, times = [], []
-    for i in range(n):
+    for i, (coll, size, axis, lat) in enumerate(traffic(n, seed)):
         if i == n // 2:
             tune.replace(bucket_tuner.program)
             bridges.append(tune.fn)
             if hasattr(tune.fn, "kernel"):
                 tune.fn.kernel.launches = 0
         t0 = time.perf_counter_ns()
-        d = disp.decide(int(colls[i]), int(sizes[i]), 8,
-                        axis_name=str(axes[i]))
+        d = disp.decide(coll, size, 8, axis_name=axis)
         times.append(time.perf_counter_ns() - t0)
         decisions.append(d)
-        disp.profiler_feed(d.comm_id, int(lats[i]), coll=d.coll,
-                           msg_size=d.size_bytes, channels=d.channels,
-                           algo=d.algo)
+        feed(disp, d, lat)
     rt.flush_bridges()
     maps = {name: rt.maps.get(name).to_device().tobytes()
             for name in sorted(rt.maps.names())}
@@ -187,21 +209,72 @@ def warm_uploads(run: dict, n: int = 100) -> int:
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
-def launch_floor_ms(reps: int = 2000) -> float:
-    """Median host time of an empty <<<1,1>>> launch plus an 8-byte
-    device-to-host copy and a stream sync."""
-    import torch
+def timing_lib():
+    """The empty and the spin kernel of ``csrc/timing.cu``, built with
+    the policy kernels' flags."""
+    import ctypes
 
     from repro_torch.core import cudac
 
-    empty = cudac.launch_floor()
+    lib = cudac.compile_library((cudac.CSRC / "timing.cu").read_text())
+    lib.bpf_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.bpf_spin_launch.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
+    lib.bpf_empty_launch.restype = ctypes.c_int
+    lib.bpf_spin_launch.restype = ctypes.c_int
+    return lib
+
+
+def device_ms(lib, launch, reps: int = TIMING_REPS) -> float:
+    """Device time of one ``launch()`` (one kernel on the current
+    stream).  ``reps`` launches are queued behind the spin kernel, so
+    they run back to back on the card once it ends, and CUDA events
+    around them read device time, not the host's issue rate.  Fails if
+    the host had not queued them all before the spin ended."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(20):
+        launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    check(lib.bpf_spin_launch(stream, SPIN_NS) == 0, "spin kernel launch")
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    check(queued, "timing launches were still being queued when the "
+          "spin kernel ended")
+    return start.elapsed_time(end) / reps
+
+
+def empty_device_ms(lib) -> float:
+    """Device time of an empty <<<1,1>>> launch, timed as the policy
+    kernels are: the launch-bound floor of a one-thread kernel."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(lib.bpf_empty_launch(stream) == 0, "empty kernel launch")
+    return device_ms(lib, launch)
+
+
+def host_floor_ms(lib, reps: int = 2000) -> float:
+    """Median host time of an empty <<<1,1>>> launch plus an 8-byte
+    device-to-host copy and a stream sync: the least a decision's device
+    round trip can take."""
+    import torch
+
     dev = torch.zeros(1, dtype=torch.int64, device="cuda")
     host = torch.zeros(1, dtype=torch.int64, pin_memory=True)
     stream = torch.cuda.current_stream()
     out = []
     for i in range(reps + 100):
         t0 = time.perf_counter_ns()
-        check(empty(stream.cuda_stream) == 0, "empty kernel launch")
+        check(lib.bpf_empty_launch(stream.cuda_stream) == 0,
+              "empty kernel launch")
         host.copy_(dev, non_blocking=True)
         stream.synchronize()
         if i >= 100:
@@ -211,14 +284,15 @@ def launch_floor_ms(reps: int = 2000) -> float:
 
 def bridge_breakdown(bridge, reps: int = 500) -> dict:
     """Median host times (us) of one bridge call and of its parts: the
-    device round trip (ctx up, launch, ctx+ret back, sync) and the step
+    enqueue of the device round trip (ctx up, the wrapper's checks and
+    launch, ctx+ret back), the wait for it (stream sync), and the step
     writeback of the kernel-written maps."""
     import torch
 
     n = bridge.kernel.n_fields
     buf = bytearray(bridge._io_host[:n].numpy().tobytes())
     stream = torch.cuda.current_stream()
-    parts = {"call": [], "round_trip": [], "writeback": []}
+    parts = {"call": [], "enqueue": [], "wait": [], "writeback": []}
     for _ in range(reps):
         t0 = time.perf_counter_ns()
         bridge(bytearray(buf))
@@ -226,20 +300,22 @@ def bridge_breakdown(bridge, reps: int = 500) -> dict:
         bridge._io[:n].copy_(bridge._io_host[:n], non_blocking=True)
         bridge.kernel.launch(bridge._io[:n], bridge._io[n:], bridge._dev)
         bridge._io_host.copy_(bridge._io, non_blocking=True)
-        stream.synchronize()
         t2 = time.perf_counter_ns()
-        bridge._writeback(bridge._written)
+        stream.synchronize()
         t3 = time.perf_counter_ns()
+        bridge._writeback(bridge._written)
+        t4 = time.perf_counter_ns()
         parts["call"].append(t1 - t0)
-        parts["round_trip"].append(t2 - t1)
-        parts["writeback"].append(t3 - t2)
+        parts["enqueue"].append(t2 - t1)
+        parts["wait"].append(t3 - t2)
+        parts["writeback"].append(t4 - t3)
     return {k: pct(v, 50) / 1e3 for k, v in parts.items()}
 
 
-def kernel_timing(bridge, reps: int = 2000) -> dict:
+def kernel_timing(lib, bridge) -> dict:
     """Device time of the bridge's kernel on clones of its main-path
-    state (CUDA events over ``reps`` back-to-back launches), the plain
-    version's time on the same inputs, and their disagreement."""
+    state, the plain version's time on the same inputs, and their
+    disagreement."""
     import torch
 
     from repro_torch.core import torchc
@@ -258,17 +334,7 @@ def kernel_timing(bridge, reps: int = 2000) -> dict:
                max_abs_diff(ctx.cpu().numpy(), p_ctx.cpu().numpy())]
               + [max_abs_diff(maps[m].cpu().numpy(), p_maps[m].cpu().numpy())
                  for m in maps])
-    # device time: back-to-back launches between two events
-    for _ in range(50):
-        k.launch(ctx, ret, maps)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        k.launch(ctx, ret, maps)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = device_ms(lib, lambda: k.launch(ctx, ret, maps))
     # plain version: host-driven, so host clock around a synchronised run
     plain = []
     for _ in range(5):
@@ -276,13 +342,39 @@ def kernel_timing(bridge, reps: int = 2000) -> dict:
         torchc.run(k.prog, k.vinfo, ctx0, maps0)
         torch.cuda.synchronize()
         plain.append(time.perf_counter_ns() - t0)
-    # the bound: each input read once, each output written once
-    map_words = sum(t.numel() for t in maps0.values())
-    written = sum(maps0[m].numel() for m in bridge._written)
-    nbytes = 8 * ((n + map_words) + (n + 1 + written))
-    return {"ms": ms, "plain_ms": pct(plain, 50) / 1e6,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_bytes": nbytes, "max_abs_err": err}
+    return {"ms": ms, "plain_ms": pct(plain, 50) / 1e6, "max_abs_err": err}
+
+
+def device_trace(disp, n: int = N_TRACE, seed: int = 12) -> dict:
+    """A ``torch.profiler`` trace of ``n`` main-path decisions with their
+    feeds: device time by kernel or copy name and the device's busy share
+    of the window (host times inside it carry the profiler's cost)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = traffic(n, seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter_ns()
+        for coll, size, axis, lat in steps:
+            feed(disp, disp.decide(coll, size, 8, axis_name=axis), lat)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter_ns() - t0) / 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0, 0.0])
+            t[0] += 1
+            t[1] += e.time_range.elapsed_us()
+    if not by_name:
+        return {"not_measured": "the profiler recorded no device events"}
+    busy_us = sum(t for _, t in by_name.values())
+    return {"decisions": n, "wall_us": wall_us, "busy_us": busy_us,
+            "busy_share": busy_us / wall_us,
+            "by_name": {k: {"count": c, "us": t, "us_each": t / c}
+                        for k, (c, t) in by_name.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +384,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-
-    import numpy as np
 
     from repro_torch.core import PolicyRuntime, VerifierError, cudac
     from repro_torch.device import have_nvcc
@@ -384,39 +474,60 @@ def main() -> int:
         f"host_fallbacks 0; warm uploads 0")
 
     # ---- 6. timing ---------------------------------------------------------
-    floor = launch_floor_ms()
+    lib = timing_lib()
+    host_floor = host_floor_ms(lib)
+    empty_ms = empty_device_ms(lib)
     lat = {t: {"p50_us": pct(r["times_ns"], 50) / 1e3,
                "p99_us": pct(r["times_ns"], 99) / 1e3}
            for t, r in (("cuda", cuda_run), ("interp", interp_run))}
     log(f"[latency] per decide(): cuda p50 {lat['cuda']['p50_us']:.1f} us "
         f"p99 {lat['cuda']['p99_us']:.1f} us; interp p50 "
         f"{lat['interp']['p50_us']:.1f} us p99 "
-        f"{lat['interp']['p99_us']:.1f} us; floor (empty launch + 8 B "
-        f"copy back) {floor * 1e3:.1f} us; {smi}")
+        f"{lat['interp']['p99_us']:.1f} us; host floor (empty launch + "
+        f"8 B copy back + sync) {host_floor * 1e3:.2f} us; {smi}")
     live = {l.fn.kernel.name: l.fn for s in cuda_run["rt"].sections()
             for l in cuda_run["rt"].chain(s)}
     table = []
     for n in MAIN_PATH:
-        t = kernel_timing(live[n])
+        t = kernel_timing(lib, live[n])
         check(t["max_abs_err"] == 0, f"{n}: kernel disagrees on the "
               f"main-path state (max abs err {t['max_abs_err']})")
+        # the bound: an empty launch timed the same way; the bytes the
+        # kernel must move (ctx, the return word, a few map rows) take
+        # nanoseconds at 3.35 TB/s, so the launch bounds it
         table.append({"name": f"policy_kernel[{n}]", "route": "cuda",
                       "source": KERNEL_SOURCE, "replaces": REPLACES,
                       "launches": launches[n],
                       "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                      "bound_by": "bytes", "library_ms": None,
-                      "floor_ms": floor})
+                      "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
+                      "bound_by": "launch", "library_ms": None})
+    log("[kernel time] ms per launch, back to back on the card: " + "; ".join(
+        f"{r['name']} {r['ms']:.6f}" for r in table)
+        + f"; empty launch {empty_ms:.6f}")
 
     parts = {n: bridge_breakdown(live[n]) for n in MAIN_PATH}
-    log("[breakdown] median us per bridge call (call = round trip + "
+    log("[breakdown] median us per bridge call (call = enqueue + wait + "
         "writeback + host work): " + "; ".join(
             f"{n} " + " ".join(f"{k} {v:.1f}" for k, v in p.items())
             for n, p in parts.items()))
+    try:
+        trace = device_trace(cuda_run["disp"])
+    except Exception as e:     # a measurement, not a check of the path
+        trace = {"not_measured": f"torch.profiler failed: {e}"}
+    if "not_measured" in trace:
+        log(f"[trace] device busy share not measured: "
+            f"{trace['not_measured']}")
+    else:
+        log(f"[trace] {trace['decisions']} decisions under torch.profiler: "
+            f"device busy {trace['busy_us']:.1f} of {trace['wall_us']:.1f} "
+            f"us ({100 * trace['busy_share']:.2f}%); " + "; ".join(
+                f"{k} x{v['count']} {v['us_each']:.2f} us each"
+                for k, v in sorted(trace["by_name"].items())))
 
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
-              "differential": diff, "latency": lat, "floor_ms": floor,
-              "breakdown_us": parts,
+              "differential": diff, "latency": lat,
+              "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
+              "breakdown_us": parts, "trace": trace,
               "main_path_s": {"cuda": cuda_s, "interp": interp_s},
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

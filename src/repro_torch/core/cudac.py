@@ -537,18 +537,23 @@ def compile_library(src: str) -> ctypes.CDLL:
                 raise CudacError("cannot build the policy kernel: no nvcc "
                                  "on PATH or under /usr/local/cuda")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            cu = BUILD_DIR / f"bpf_{key}.cu"
+            # source and library under names of this process and thread,
+            # so another process building the same key never reads a
+            # half-written file; only the finished .so is renamed in
+            tmp = BUILD_DIR / f"bpf_{key}.{os.getpid()}.{threading.get_ident()}"
+            cu = BUILD_DIR / f"{tmp.name}.cu"
             cu.write_text(src)
-            tmp = BUILD_DIR / f"bpf_{key}.{os.getpid()}.{threading.get_ident()}.tmp"
             try:
                 r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
                                     str(cu)], capture_output=True,
                                    timeout=600)
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise CudacError(f"nvcc did not run: {e}") from e
+            finally:
+                cu.unlink(missing_ok=True)
             if r.returncode != 0:
                 raise CudacError(
-                    f"nvcc failed ({r.returncode}) on {cu}: "
+                    f"nvcc failed ({r.returncode}) on source {key}: "
                     f"{r.stderr.decode(errors='replace')[:4000]}")
             os.replace(tmp, so)
             built = True
@@ -647,26 +652,9 @@ class PolicyKernel:
                              f"CUDA error {err}")
         self.launches += 1
 
-    def __call__(self, ctx: torch.Tensor, maps: Dict[str, torch.Tensor]):
-        """``(ret, ctx, maps)`` after one in-place decision."""
-        ret = torch.zeros(1, dtype=torch.int64, device=ctx.device)
-        self.launch(ctx, ret, maps)
-        return ret[0], ctx, maps
 
-
-def build_all(kernels: Iterable[PolicyKernel],
-              workers: Optional[int] = None) -> List[PolicyKernel]:
+def build_all(kernels: Iterable[PolicyKernel]) -> List[PolicyKernel]:
     """Build every kernel, one nvcc process per source, in parallel."""
     kernels = list(kernels)
-    with ThreadPoolExecutor(max_workers=workers or os.cpu_count() or 4) as ex:
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
         return list(ex.map(PolicyKernel.build, kernels))
-
-
-def launch_floor():
-    """``fn(stream) -> int``: launches an empty ``<<<1,1>>>`` kernel (the
-    floor a decision kernel is measured against)."""
-    fn = compile_library((CSRC / "launch_floor.cu").read_text()) \
-        .bpf_empty_launch
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn

@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_samples as samples
 from repro_torch.core import PolicyRuntime, cudac, make_ctx, torchc
 from repro_torch.core.vm import VM
 from repro_torch.policies import (ALL_POLICIES, adapt_profiler, adapt_tuner,
-                                  bucket_profiler, bucket_tuner, samples)
+                                  bucket_profiler, bucket_tuner)
 
 pytestmark = pytest.mark.cuda
 

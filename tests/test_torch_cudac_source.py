@@ -20,10 +20,11 @@ import subprocess
 import numpy as np
 import pytest
 
+import torch_samples as samples
 from repro_torch.core import cudac, torchc
 from repro_torch.core.verifier import verify_with_info
 from repro_torch.core.vm import VM
-from repro_torch.policies import ALL_POLICIES, LOOP_POLICIES, samples
+from repro_torch.policies import ALL_POLICIES, LOOP_POLICIES
 from repro_torch.policies.telemetry import TELEMETRY_POLICIES
 
 N_SAMPLES = 6

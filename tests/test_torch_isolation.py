@@ -25,8 +25,8 @@ PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.core.torchc", "repro_torch.core.cudac",
            "repro_torch.core.bridge", "repro_torch.core.runtime",
-           "repro_torch.policies", "repro_torch.policies.samples",
-           "repro_torch.collectives", "repro_torch.collectives.dispatch"]
+           "repro_torch.policies", "repro_torch.collectives",
+           "repro_torch.collectives.dispatch"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():

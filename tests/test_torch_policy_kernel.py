@@ -19,6 +19,7 @@ import torch
 
 import repro.policies as ref_policies
 import repro.policies.profiler as ref_profiler
+import torch_samples as samples
 from repro.core import assemble as ref_assemble
 from repro.core import map_decl as ref_map_decl
 from repro.core.jaxc import JaxcError, check_supported as ref_check
@@ -26,7 +27,7 @@ from repro_torch.core import assemble, map_decl
 from repro_torch.core import torchc
 from repro_torch.core.cudac import CudacError, PolicyKernel
 from repro_torch.core.verifier import verify_with_info
-from repro_torch.policies import ALL_POLICIES, samples
+from repro_torch.policies import ALL_POLICIES
 
 N_SAMPLES = 3
 

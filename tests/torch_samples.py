@@ -1,10 +1,13 @@
-"""Seeded inputs for differential runs of the shipped policies.
+"""Seeded inputs for differential runs of the port's shipped policies.
 
 The policy kernel, its plain PyTorch version, the interpreter and the
 reference package's tiers are compared on the same inputs: host maps
 filled from a numpy generator and ctx buffers drawn per section.  Values
 stay below 2**40 so no tier's ``ema_update`` arithmetic leaves u64
 (the reference lowering wraps, the interpreter does not).
+
+A helper of the tests and of ``chip_smoke.py`` (which puts ``tests/`` on
+its path), not part of the ``repro_torch`` package.
 """
 
 from __future__ import annotations
@@ -14,9 +17,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..core.context import CTX_TYPES
-from ..core.maps import BpfMap, MapRegistry
-from ..core.program import Program
+from repro_torch.core.context import CTX_TYPES
+from repro_torch.core.maps import BpfMap, MapRegistry
+from repro_torch.core.program import Program
 
 _VAL_HI = 1 << 40
 
