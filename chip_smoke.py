@@ -29,7 +29,37 @@ Phases (any failure exits non-zero and prints no result line):
    launch timed the same way, and beside its plain version; the bridge
    call split into its host and device parts; a ``torch.profiler``
    trace of a window of decisions for device time by kernel and the
-   device's busy share.
+   device's busy share (a trace that fails, or records no device event,
+   fails the run);
+7. pair-form kernel (B2) — for every shipped policy without an
+   ``lru_hash`` map the pair-form kernel, its plain version (on the card)
+   and the interpreter agree bit for bit on the seeded samples in pair
+   layout; the ``lru_hash`` policies are rejected for ``cuda32`` with the
+   reference's message and nothing is built for them; the pair-form
+   golden programs of ``tests/torch_samples.py`` run through the kernel
+   (built as bundles of programs) and equal the interpreter;
+8. in-graph closed loop — a ``CollectiveDispatcher(tier="cuda")`` with
+   ``bucket_tuner`` attached, its map warmed by decisions and
+   ``bucket_profiler`` feeds; ``make_ingraph`` with ``tier="cuda32"``,
+   ``"cuda"`` and ``"torch"`` (the plain version on the CPU) each run 8
+   shard states (one per rank) for 1,000 steps over seeded 4 KiB - 1 GiB
+   messages: every ``(algo, channels)`` equal across the tiers, fault
+   flags drained, the shard states merged into host maps that are
+   byte-identical across the tiers, kernel launches equal to the
+   ``decide`` calls; timing of the in-graph step (decide, host read,
+   pick) and of the pair-form kernel beside its bound and plain version;
+9. collectives — an 8-rank ``gloo`` group (kernels built before the
+   spawn, so the ranks only load them): each rank keeps its policy state
+   on ``cuda:0`` and runs ``sel.all_reduce`` (``make_ingraph(tier=
+   "cuda32")``) and the dispatcher's ``all_reduce`` / ``reduce_scatter``
+   / ``all_gather`` / ``all_to_all`` on host tensors over 32 seeded
+   4 KiB - 16 MiB f32 messages, each output allclose to torch's own
+   collective (rtol = atol = 1e-5 for SIMPLE, 2e-2 where a bf16 wire was
+   chosen), at least two algorithms run; the rank states are gathered
+   and merged.  Then a 1-rank NCCL group on the card runs the
+   dispatcher's entry points on 256 MiB CUDA tensors.  A single H100
+   cannot hold a multi-rank NCCL group (NCCL refuses two ranks on one
+   device), so the multi-rank payloads travel over ``gloo``.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -57,6 +87,14 @@ MAIN_PATH = ("bucket_tuner", "adapt_tuner", "adapt_profiler",
              "bucket_profiler")
 KERNEL_SOURCE = "src/repro_torch/core/csrc/policy_kernel.cuh"
 REPLACES = "src/repro/core/pallasc.py:175"
+KERNEL32_SOURCE = "src/repro_torch/core/cudac.py"
+REPLACES32 = "src/repro/core/pallasc.py:229"
+N_SHARDS = 8            # shard states of the in-graph loop (one per rank)
+N_STEPS = 1_000         # in-graph steps per shard state
+N_WARM = 200            # decisions + feeds that warm the tuner's map
+N_RANKS = 8             # ranks of the gloo group
+N_COLL_STEPS = 32       # collective steps per rank
+M64 = (1 << 64) - 1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -85,44 +123,61 @@ def max_abs_diff(a, b) -> int:
     return max((abs(int(p) - int(q)) for p, q in zip(x, y)), default=0)
 
 
-def differential(kernel, device, seed: int) -> dict:
-    """Run ``kernel`` (in place), torchc and the VM over seeded inputs;
-    returns the worst disagreement per output."""
+def pair_words(t):
+    """A pair-form tensor as its u64 words (int64), for max_abs_diff."""
+    from repro_torch.core.pair import pairs_to_words
+    return pairs_to_words(t.cpu()).numpy()
+
+
+def differential(kernel, device, seed: int, pairs: bool = False) -> dict:
+    """Run ``kernel`` (in place), its plain version and the VM over seeded
+    inputs — u64 words, or with ``pairs`` the pair form (B2) — and return
+    the worst disagreement over every output."""
     import numpy as np
     import torch
 
     import torch_samples as samples
-    from repro_torch.core import torchc
+    from repro_torch.core import pair, torchc
     from repro_torch.core.vm import VM
 
+    if pairs:
+        to_map, to_ctx = pair.map_to_array32, pair.ctx_to_vec32
+        launch, plain = kernel.launch32, torchc.run32
+        new_ret = lambda: torch.zeros(2, dtype=torch.int32,   # noqa: E731
+                                      device=device)
+        ret_int, words = pair.ret32_to_int, pair_words
+    else:
+        to_map, to_ctx = torchc.map_to_array, torchc.ctx_to_vec
+        launch, plain = kernel.launch, torchc.run
+        new_ret = lambda: torch.zeros(1, dtype=torch.int64,   # noqa: E731
+                                      device=device)
+        ret_int = lambda r: int(r.reshape(-1)[0]) & M64       # noqa: E731
+        words = lambda t: t.cpu().numpy()                     # noqa: E731
     prog = kernel.prog
     host = samples.make_maps(prog, np.random.default_rng(seed))
     vm = VM(prog.insns, host, subprogs=prog.subprogs)
-    k_maps = {n: torchc.map_to_array(m, device) for n, m in host.items()}
+    k_maps = {n: to_map(m, device) for n, m in host.items()}
     p_maps = {n: t.clone() for n, t in k_maps.items()}
     rng = np.random.default_rng(seed + 1)
     worst = 0
     for _ in range(N_SAMPLES):
         buf = samples.make_ctx(prog, rng)
-        k_ctx = torchc.ctx_to_vec(buf, device)
-        ret = torch.zeros(1, dtype=torch.int64, device=device)
-        kernel.launch(k_ctx, ret, k_maps)
-        p_ret, p_ctx, p_maps = torchc.run(prog, kernel.vinfo,
-                                          torchc.ctx_to_vec(buf, device),
-                                          p_maps)
+        k_ctx = to_ctx(buf, device)
+        ret = new_ret()
+        launch(k_ctx, ret, k_maps)
+        p_ret, p_ctx, p_maps = plain(prog, kernel.vinfo, to_ctx(buf, device),
+                                     p_maps)
         v_buf = bytearray(buf)
-        v_ret = vm.run(v_buf) & ((1 << 64) - 1)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        k_ret = int(ret.cpu()[0]) & ((1 << 64) - 1)
-        worst = max(worst, abs(k_ret - v_ret),
-                    abs(k_ret - (int(p_ret.cpu()) & ((1 << 64) - 1))),
-                    max_abs_diff(k_ctx.cpu().numpy(), p_ctx.cpu().numpy()),
-                    max_abs_diff(k_ctx.cpu().numpy(),
+        v_ret = vm.run(v_buf) & M64
+        torch.cuda.synchronize()
+        k_ret = ret_int(ret)
+        worst = max(worst, abs(k_ret - v_ret), abs(k_ret - ret_int(p_ret)),
+                    max_abs_diff(words(k_ctx), words(p_ctx)),
+                    max_abs_diff(words(k_ctx),
                                  np.frombuffer(bytes(v_buf), "<i8")))
         for n, m in host.items():
-            k = k_maps[n].cpu().numpy()
-            worst = max(worst, max_abs_diff(k, p_maps[n].cpu().numpy()),
+            k = words(k_maps[n])
+            worst = max(worst, max_abs_diff(k, words(p_maps[n])),
                         max_abs_diff(k, m.to_device().view("<i8")))
     return {"max_abs_err": worst, "samples": N_SAMPLES}
 
@@ -312,54 +367,74 @@ def bridge_breakdown(bridge, reps: int = 500) -> dict:
     return {k: pct(v, 50) / 1e3 for k, v in parts.items()}
 
 
-def kernel_timing(lib, bridge) -> dict:
-    """Device time of the bridge's kernel on clones of its main-path
-    state, the plain version's time on the same inputs, and their
-    disagreement."""
+def kernel_timing(lib, kernel, ctx0, maps0, pairs: bool = False) -> dict:
+    """Device time of ``kernel`` (its pair form with ``pairs``) on clones
+    of main-path inputs ``ctx0`` / ``maps0``, its plain version's time on
+    the same inputs, and their disagreement."""
     import torch
 
     from repro_torch.core import torchc
 
-    k = bridge.kernel
-    n = k.n_fields
-    ctx0 = bridge._io[:n].clone()
-    maps0 = {m: t.clone() for m, t in bridge._dev.items()}
+    launch = kernel.launch32 if pairs else kernel.launch
+    plain = torchc.run32 if pairs else torchc.run
+    words = pair_words if pairs else (lambda t: t.cpu().numpy())
     # one decision each on identical inputs: kernel vs plain version
     ctx, maps = ctx0.clone(), {m: t.clone() for m, t in maps0.items()}
-    ret = torch.zeros(1, dtype=torch.int64, device=ctx.device)
-    k.launch(ctx, ret, maps)
-    p_ret, p_ctx, p_maps = torchc.run(k.prog, k.vinfo, ctx0, maps0)
+    ret = torch.zeros(2, dtype=torch.int32, device=ctx.device) if pairs \
+        else torch.zeros(1, dtype=torch.int64, device=ctx.device)
+    launch(ctx, ret, maps)
+    p_ret, p_ctx, p_maps = plain(kernel.prog, kernel.vinfo, ctx0, maps0)
     torch.cuda.synchronize()
-    err = max([max_abs_diff(ret.cpu().numpy(), p_ret.reshape(1).cpu().numpy()),
-               max_abs_diff(ctx.cpu().numpy(), p_ctx.cpu().numpy())]
-              + [max_abs_diff(maps[m].cpu().numpy(), p_maps[m].cpu().numpy())
+    err = max([max_abs_diff(words(ret.reshape(-1, 2) if pairs else ret),
+                            words(p_ret.reshape(-1, 2) if pairs
+                                  else p_ret.reshape(1))),
+               max_abs_diff(words(ctx), words(p_ctx))]
+              + [max_abs_diff(words(maps[m]), words(p_maps[m]))
                  for m in maps])
-    ms = device_ms(lib, lambda: k.launch(ctx, ret, maps))
+    ms = device_ms(lib, lambda: launch(ctx, ret, maps))
     # plain version: host-driven, so host clock around a synchronised run
-    plain = []
+    times = []
     for _ in range(5):
         t0 = time.perf_counter_ns()
-        torchc.run(k.prog, k.vinfo, ctx0, maps0)
+        plain(kernel.prog, kernel.vinfo, ctx0, maps0)
         torch.cuda.synchronize()
-        plain.append(time.perf_counter_ns() - t0)
-    return {"ms": ms, "plain_ms": pct(plain, 50) / 1e6, "max_abs_err": err}
+        times.append(time.perf_counter_ns() - t0)
+    return {"ms": ms, "plain_ms": pct(times, 50) / 1e6, "max_abs_err": err}
 
 
-def device_trace(disp, n: int = N_TRACE, seed: int = 12) -> dict:
-    """A ``torch.profiler`` trace of ``n`` main-path decisions with their
-    feeds: device time by kernel or copy name and the device's busy share
-    of the window (host times inside it carry the profiler's cost)."""
+
+def log_trace(tag: str, what: str, trace: dict) -> None:
+    log(f"{tag} {trace['decisions']} {what} under torch.profiler: "
+        f"device busy {trace['busy_us']:.1f} of {trace['wall_us']:.1f} "
+        f"us ({100 * trace['busy_share']:.2f}%); " + "; ".join(
+            f"{k} x{v['count']} {v['us_each']:.2f} us each"
+            for k, v in sorted(trace["by_name"].items())))
+
+
+def main_path_window(disp, n: int = N_TRACE, seed: int = 12):
+    """``n`` main-path decisions with their feeds, for :func:`device_trace`."""
+    steps = traffic(n, seed)
+
+    def run():
+        for coll, size, axis, lat in steps:
+            feed(disp, disp.decide(coll, size, 8, axis_name=axis), lat)
+    return run
+
+
+def device_trace(run, n: int = N_TRACE) -> dict:
+    """A ``torch.profiler`` trace of ``run()`` (a window of ``n``
+    decisions or steps): device time by kernel or copy name and the
+    device's busy share of the window (host times inside it carry the
+    profiler's cost)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps = traffic(n, seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter_ns()
-        for coll, size, axis, lat in steps:
-            feed(disp, disp.decide(coll, size, 8, axis_name=axis), lat)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter_ns() - t0) / 1e3
     by_name: dict = {}
@@ -368,13 +443,375 @@ def device_trace(disp, n: int = N_TRACE, seed: int = 12) -> dict:
             t = by_name.setdefault(e.name, [0, 0.0])
             t[0] += 1
             t[1] += e.time_range.elapsed_us()
-    if not by_name:
-        return {"not_measured": "the profiler recorded no device events"}
+    check(bool(by_name), "torch.profiler recorded no device events")
     busy_us = sum(t for _, t in by_name.values())
     return {"decisions": n, "wall_us": wall_us, "busy_us": busy_us,
             "busy_share": busy_us / wall_us,
             "by_name": {k: {"count": c, "us": t, "us_each": t / c}
                         for k, (c, t) in by_name.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the pair-form kernel
+# ---------------------------------------------------------------------------
+
+def goldens32(device) -> dict:
+    """The pair-form golden programs through the pair-form kernel (built
+    as bundles: nvcc's fixed cost dominates programs this small), each
+    against its plain version and the VM."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as C
+    import torch_samples as samples
+    from repro_torch.core import cudac, pair, torchc
+    from repro_torch.core.vm import VM
+
+    gs = samples.pair_goldens()
+    t0 = time.time()
+    kernels = cudac.build_bundle(
+        cudac.PolicyKernel(g.program(C), prefix=f"g{j}_")
+        for j, g in enumerate(gs))
+    build_s = time.time() - t0
+    worst = 0
+    for g, k in zip(gs, kernels):
+        host = g.host_maps(C)
+        maps = {n: pair.map_to_array32(m, device) for n, m in host.items()}
+        buf = C.make_ctx("tuner", **samples.PAIR_CTX).buf
+        ctx = pair.ctx_to_vec32(buf, device)
+        ret = torch.zeros(2, dtype=torch.int32, device=device)
+        k.launch32(ctx, ret, maps)
+        p_ret, p_ctx, p_maps = torchc.run32(
+            k.prog, k.vinfo, pair.ctx_to_vec32(buf, device),
+            {n: pair.map_to_array32(m, device) for n, m in host.items()})
+        v_buf = bytearray(buf)
+        v_ret = VM(k.prog.insns, host).run(v_buf) & M64
+        torch.cuda.synchronize()
+        err = max(abs(pair.ret32_to_int(ret) - v_ret),
+                  abs(pair.ret32_to_int(ret) - pair.ret32_to_int(p_ret)),
+                  max_abs_diff(pair_words(ctx), pair_words(p_ctx)),
+                  max_abs_diff(pair_words(ctx),
+                               np.frombuffer(bytes(v_buf), "<i8")))
+        for n, m in host.items():
+            err = max(err, max_abs_diff(pair_words(maps[n]),
+                                        pair_words(p_maps[n])),
+                      max_abs_diff(pair_words(maps[n]),
+                                   m.to_device().view("<i8")))
+        check(err == 0, f"golden {g.id}: pair-form kernel disagrees "
+              f"(max abs err {err})")
+        check(k.launches32 == 1, f"golden {g.id}: kernel not launched")
+        worst = max(worst, err)
+    return {"goldens": len(gs), "build_s": build_s, "max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the in-graph closed loop
+# ---------------------------------------------------------------------------
+
+def ingraph_steps(seed: int = 21):
+    """``N_SHARDS x N_STEPS`` seeded ``(coll, size)`` steps: 4 KiB - 1 GiB
+    messages (log2-uniform) over an AllReduce / AllGather /
+    ReduceScatter mix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    colls = rng.choice([0, 1, 2], (N_SHARDS, N_STEPS))
+    sizes = np.left_shift(1, rng.integers(12, 31, (N_SHARDS, N_STEPS)))
+    return colls.tolist(), sizes.tolist()
+
+
+def warmed_dispatcher(seed: int = 13):
+    """``CollectiveDispatcher(tier="cuda")`` with bucket_tuner and
+    bucket_profiler attached, the tuner's map warmed by decisions and
+    the profiler's by feeds."""
+    from repro_torch.collectives import CollectiveDispatcher
+    from repro_torch.core import PolicyRuntime
+    from repro_torch.policies import bucket_profiler, bucket_tuner
+
+    rt = PolicyRuntime(tier="cuda")
+    disp = CollectiveDispatcher(runtime=rt)
+    rt.attach(bucket_tuner.program)
+    rt.attach(bucket_profiler.program)
+    for coll, size, axis, lat in traffic(N_WARM, seed):
+        feed(disp, disp.decide(coll, size, 8, axis_name=axis), lat)
+    rt.flush_bridges()
+    return disp
+
+
+def ingraph_loop(disp, tier: str, steps) -> dict:
+    """``make_ingraph(tier)``: N_SHARDS shard states, N_STEPS each; per
+    step the decision, its host read and the pick of the branch.  The
+    kernel's launch count is zeroed just before the loop and read just
+    after it; then the fault flags are drained and the shards merged into
+    a copy of the runtime's maps."""
+    import torch
+
+    from repro_torch.collectives.ingraph import _BRANCHES
+    from repro_torch.core.maps import MapRegistry
+
+    colls, sizes = steps
+    sel, base = disp.make_ingraph(tier=tier)
+    states = [dict(base) for _ in range(N_SHARDS)]
+    picks, times = [], []
+    sel.kernel.launches = sel.kernel.launches32 = 0
+    for i in range(N_STEPS):
+        for s in range(N_SHARDS):
+            t0 = time.perf_counter_ns()
+            algo, ch, states[s] = sel.decide(states[s], coll=colls[s][i],
+                                             msg_bytes=sizes[s][i], n=8)
+            a, c = torch.stack([algo, ch]).tolist()     # one host read
+            _BRANCHES[a]
+            times.append(time.perf_counter_ns() - t0)
+            picks.append((a, c))
+    launches = sel.kernel.launches32 if tier == "cuda32" \
+        else sel.kernel.launches
+    faults = 0
+    for s in range(N_SHARDS):
+        n, states[s] = sel.drain_faults(states[s])
+        faults += n
+    reg = MapRegistry()
+    for d in sel.program.maps:
+        reg.create(d.name, d.kind, key_size=d.key_size,
+                   value_size=d.value_size, max_entries=d.max_entries
+                   ).from_device(disp.runtime.maps.get(d.name).to_device())
+    merged = sel.merge_shard_states(reg, states, base)
+    maps = {n: reg.get(n).to_device().tobytes() for n in sorted(reg.names())}
+    return {"sel": sel, "states": states, "picks": picks, "times_ns": times,
+            "launches": launches, "faults": faults, "merged": merged,
+            "maps": maps}
+
+
+def ingraph_breakdown(sel, state, reps: int = 500) -> dict:
+    """Median host us of one in-graph step and of its parts, replayed as
+    ``InGraphSelector.decide`` runs them: the ctx (host words, pinned
+    upload), the copies of the written leaves, the kernel launch, the
+    clamp and counter updates (these three only enqueue), and the host
+    read of the decision, which waits for the device."""
+    import torch
+
+    from repro_torch.collectives.ingraph import _IDX, CURSOR_KEY, FAULT_KEY
+    from repro_torch.core.pair import words_to_pairs
+
+    fields = {"coll_type": 0, "msg_size": 1 << 20, "n_ranks": 8,
+              "comm_id": 0, "max_channels": 32}
+    names = ("step", "ctx", "copy", "launch", "clamp", "read")
+    parts = {k: [] for k in names}
+    for _ in range(reps):
+        t = [time.perf_counter_ns()]
+        algo, ch, _ = sel.decide(state, coll=0, msg_bytes=1 << 20, n=8)
+        torch.stack([algo, ch]).tolist()
+        t.append(time.perf_counter_ns())
+        vec = sel._ctx_vec(fields)
+        t.append(time.perf_counter_ns())
+        leaves = {k: (v.clone() if k in sel.written_names else v)
+                  for k, v in state.items()
+                  if k not in (FAULT_KEY, CURSOR_KEY)}
+        t.append(time.perf_counter_ns())
+        if sel.word_width == 32:
+            vec2 = words_to_pairs(vec)
+            ret = torch.zeros(2, dtype=torch.int32, device=vec.device)
+            sel.kernel.launch32(vec2, ret, leaves)
+            raw_a, raw_c = vec2[_IDX["algorithm"], 0], \
+                vec2[_IDX["n_channels"], 0]
+        else:
+            ret = torch.zeros(1, dtype=torch.int64, device=vec.device)
+            sel.kernel.launch(vec, ret, leaves)
+            raw_a = vec[_IDX["algorithm"]].to(torch.int32)
+            raw_c = vec[_IDX["n_channels"]].to(torch.int32)
+        t.append(time.perf_counter_ns())
+        a, c = raw_a.clamp(0, 3), raw_c.clamp(0, 32)
+        bad = ((raw_a != a) | (raw_c != c)).to(torch.int32)
+        _ = (state[FAULT_KEY] + bad, state[CURSOR_KEY] + 1)
+        t.append(time.perf_counter_ns())
+        torch.stack([a, c]).tolist()
+        t.append(time.perf_counter_ns())
+        parts["step"].append(t[1] - t[0])
+        for k, (u, v) in zip(names[1:], zip(t[1:], t[2:])):
+            parts[k].append(v - u)
+    return {k: pct(v, 50) / 1e3 for k, v in parts.items()}
+
+
+def ingraph_window(sel, state, n: int = N_TRACE):
+    """``n`` in-graph steps (decide + host read), for :func:`device_trace`."""
+    import torch
+
+    def run():
+        st = state
+        for i in range(n):
+            algo, ch, st = sel.decide(st, coll=0, msg_bytes=1 << (12 + i % 19),
+                                      n=8)
+            torch.stack([algo, ch]).tolist()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 9: collectives
+# ---------------------------------------------------------------------------
+
+def _coll_rank(rank: int, port: int, q) -> None:
+    """One rank of the gloo group: the policy state on cuda:0, the
+    payloads on the host."""
+    try:
+        q.put((rank, _coll_rank_body(rank, port)))
+    except Exception:       # reported to the parent, which fails the run
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _coll_rank_body(rank: int, port: int) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import CollectiveDispatcher
+    from repro_torch.collectives import algorithms as A
+    from repro_torch.core import PolicyRuntime, Proto, cudac
+    from repro_torch.core.maps import MapRegistry
+    from repro_torch.policies import bucket_profiler, bucket_tuner
+
+    import datetime
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=N_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    torch.cuda.set_device(0)
+    rt = PolicyRuntime(tier="cuda")
+    disp = CollectiveDispatcher(runtime=rt)
+    rt.attach(bucket_tuner.program)
+    rt.attach(bucket_profiler.program)
+    sel, state = disp.make_ingraph(tier="cuda32")
+    base = {k: v.clone() for k, v in state.items()}
+    sel.kernel.launches32 = 0
+    rng = np.random.default_rng(7)                # the same on every rank
+    sizes = np.left_shift(1, rng.integers(12, 25, N_COLL_STEPS)).tolist()
+    algos, worst, bad = set(), {"simple": 0.0, "bf16": 0.0}, []
+
+    def cmp(got, want, proto):
+        # recorded, not raised: a rank that stopped here would leave the
+        # others waiting in the next collective
+        key = "simple" if proto == Proto.SIMPLE else "bf16"
+        tol = 1e-5 if key == "simple" else 2e-2
+        same = got.shape == want.shape
+        err = float((got - want).abs().max()) if same else float("inf")
+        if not (same and torch.allclose(got, want, rtol=tol, atol=tol)):
+            bad.append(f"step {step}: off by {err} (tolerance {tol})")
+        worst[key] = max(worst[key], err)
+
+    for step, size in enumerate(sizes):
+        # small integers: a bf16 wire carries them, and their sums, exactly
+        x = torch.from_numpy(np.random.default_rng(
+            (rank, step)).integers(-8, 9, size // 4).astype(np.float32))
+        y, algo, state = sel.all_reduce(x, "data", state)
+        cmp(y, A.allreduce_native(x), Proto.SIMPLE)
+        algos.add(int(algo))
+        y = disp.all_reduce(x, "data")
+        d = disp.decisions[-1]
+        cmp(y, A.allreduce_native(x), d.proto)
+        algos.add(d.algo)
+        x2 = x.reshape(N_RANKS, -1)
+        y = disp.reduce_scatter(x2, "data")
+        d = disp.decisions[-1]
+        cmp(y, A.reduce_scatter_native(x2), d.proto)
+        algos.add(d.algo)
+        y = disp.all_gather(x2[0], "data")
+        d = disp.decisions[-1]
+        cmp(y, A.all_gather_native(x2[0]), d.proto)
+        algos.add(d.algo)
+        y = disp.all_to_all(x2, "data")
+        d = disp.decisions[-1]
+        cmp(y, A.all_to_all_native(x2), d.proto)
+        algos.add(d.algo)
+    launches = sel.kernel.launches32
+    shard = {k: v.cpu() for k, v in state.items()}
+    gathered = [None] * N_RANKS if rank == 0 else None
+    dist.gather_object(shard, gathered, dst=0)
+    out = {"algos": sorted(algos), "worst": worst, "bad": bad,
+           "launches32": launches,
+           "host_syncs": sel.host_syncs, "builds": cudac.cache_stats()
+           ["builds"], "decisions": len(disp.decisions)}
+    if rank == 0:
+        reg = MapRegistry()
+        for d in sel.program.maps:
+            reg.create(d.name, d.kind, key_size=d.key_size,
+                       value_size=d.value_size, max_entries=d.max_entries
+                       ).from_device(sel._host_u64(base[d.name]))
+        before = sel._host_u64(base["bucket_tune_state"])
+        out["merged"] = sel.merge_shard_states(reg, gathered, base)
+        after = reg.get("bucket_tune_state").to_device()
+        # counts (slot 0 of each used row) grew by one per decide per rank
+        used = lambda a: a[:-1, 0][a[:-1, 3] != 0].sum()   # noqa: E731
+        out["count_delta"] = int(used(after)) - int(used(before))
+    dist.destroy_process_group()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def gloo_collectives() -> dict:
+    """Spawn the gloo group, collect every rank's record, stop them all."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_coll_rank, args=(r, port, q))
+             for r in range(N_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        out = dict(q.get(timeout=600) for _ in range(N_RANKS))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    for r, rec in sorted(out.items()):
+        check("error" not in rec, f"rank {r} failed:\n{rec.get('error')}")
+    return out
+
+
+def nccl_one_rank(device) -> dict:
+    """A 1-rank NCCL group on the card: the dispatcher's entry points on
+    256 MiB CUDA tensors (a one-rank all-reduce is the identity and is
+    short-circuited, as in the reference; the others decide and run)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import CollectiveDispatcher
+    from repro_torch.collectives.dispatch import _algo_fn
+    from repro_torch.core import PolicyRuntime
+    from repro_torch.policies import bucket_tuner
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        rt = PolicyRuntime(tier="cuda")
+        disp = CollectiveDispatcher(runtime=rt)
+        rt.attach(bucket_tuner.program)
+        x = torch.randn(64 << 20, device=device)        # 256 MiB of f32
+        ran = {}
+        for name in ("all_reduce", "reduce_scatter", "all_gather",
+                     "all_to_all"):
+            ran[name] = []
+            for _ in range(2):        # first sighting, then the decision
+                n_dec = len(disp.decisions)
+                y = getattr(disp, name)(x, "data")
+                torch.cuda.synchronize()
+                check(torch.equal(y, x), f"1-rank {name} changed its input")
+                if len(disp.decisions) > n_dec:
+                    d = disp.decisions[-1]
+                    ran[name].append(_algo_fn(d.coll, d.algo).__name__)
+                else:
+                    ran[name].append("identity (n == 1)")
+        return {"backend": dist.get_backend(), "bytes": x.numel() * 4,
+                "ran": ran}
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +926,9 @@ def main() -> int:
             for l in cuda_run["rt"].chain(s)}
     table = []
     for n in MAIN_PATH:
-        t = kernel_timing(lib, live[n])
+        b = live[n]
+        t = kernel_timing(lib, b.kernel, b._io[:b.kernel.n_fields].clone(),
+                          {m: v.clone() for m, v in b._dev.items()})
         check(t["max_abs_err"] == 0, f"{n}: kernel disagrees on the "
               f"main-path state (max abs err {t['max_abs_err']})")
         # the bound: an empty launch timed the same way; the bytes the
@@ -510,25 +949,141 @@ def main() -> int:
         "writeback + host work): " + "; ".join(
             f"{n} " + " ".join(f"{k} {v:.1f}" for k, v in p.items())
             for n, p in parts.items()))
-    try:
-        trace = device_trace(cuda_run["disp"])
-    except Exception as e:     # a measurement, not a check of the path
-        trace = {"not_measured": f"torch.profiler failed: {e}"}
-    if "not_measured" in trace:
-        log(f"[trace] device busy share not measured: "
-            f"{trace['not_measured']}")
-    else:
-        log(f"[trace] {trace['decisions']} decisions under torch.profiler: "
-            f"device busy {trace['busy_us']:.1f} of {trace['wall_us']:.1f} "
-            f"us ({100 * trace['busy_share']:.2f}%); " + "; ".join(
-                f"{k} x{v['count']} {v['us_each']:.2f} us each"
-                for k, v in sorted(trace["by_name"].items())))
+    trace = device_trace(main_path_window(cuda_run["disp"]))
+    log_trace("[trace]", "decisions", trace)
+
+    # ---- 7. the pair-form kernel (B2) --------------------------------------
+    from repro_torch.collectives.ingraph import InGraphSelector
+    diff32 = {}
+    for i, k in enumerate(kernels):
+        if not k.pairs:
+            builds = cudac.cache_stats()["builds"]
+            for make in (lambda: cudac.check_supported32(k.prog),
+                         lambda: InGraphSelector(k.prog, tier="cuda32")):
+                try:
+                    make()
+                except cudac.CudacError as e:
+                    check("lru_hash" in str(e) and "cuda32" in str(e),
+                          f"{k.name}: unexpected cuda32 rejection {e}")
+                else:
+                    raise RuntimeError(f"chip smoke failed: {k.name} "
+                                       "accepted for cuda32")
+            check(cudac.cache_stats()["builds"] == builds,
+                  f"a kernel was built for {k.name} on cuda32")
+            diff32[k.name] = "rejected (lru_hash)"
+            continue
+        before = k.launches32
+        r = differential(k, dev, seed=200 + i, pairs=True)
+        check(r["max_abs_err"] == 0, f"{k.name}: pair-form kernel "
+              f"disagrees (max abs err {r['max_abs_err']})")
+        diff32[k.name] = {"launches32": k.launches32 - before, **r}
+    gold = goldens32(dev)
+    log(f"[pair] {sum(isinstance(v, dict) for v in diff32.values())} "
+        f"policies bit-exact vs torchc.run32 and the VM; rejected for "
+        f"cuda32: {[n for n, v in diff32.items() if isinstance(v, str)]}; "
+        f"{gold['goldens']} golden programs bit-exact (built in "
+        f"{gold['build_s']:.1f} s)")
+
+    # ---- 8. in-graph closed loop -------------------------------------------
+    disp = warmed_dispatcher()
+    steps = ingraph_steps()
+    t0 = time.time()
+    ig = {t: ingraph_loop(disp, t, steps) for t in ("cuda32", "cuda",
+                                                      "torch")}
+    ig_s = time.time() - t0
+    n_dec = N_SHARDS * N_STEPS
+    for t in ("cuda32", "cuda"):
+        check(ig[t]["picks"] == ig["torch"]["picks"],
+              f"in-graph {t} decisions differ from torch's")
+        check(ig[t]["maps"] == ig["torch"]["maps"],
+              f"in-graph {t} merged maps differ from torch's")
+        check(ig[t]["launches"] == n_dec,
+              f"in-graph {t}: {ig[t]['launches']} launches for {n_dec} "
+              "decide calls")
+        check(ig[t]["merged"] == ig["torch"]["merged"] == 1,
+              f"in-graph {t}: {ig[t]['merged']} maps merged")
+    ig_algos = sorted({a for a, _ in ig["torch"]["picks"]})
+    check(len(ig_algos) >= 2, f"in-graph loop ran one algorithm {ig_algos}")
+    step = {t: {"p50_us": pct(ig[t]["times_ns"], 50) / 1e3,
+                "p99_us": pct(ig[t]["times_ns"], 99) / 1e3}
+            for t in ("cuda32", "cuda", "torch")}
+    log(f"[ingraph] {N_SHARDS} shard states x {N_STEPS} steps on cuda32, "
+        f"cuda and torch ({ig_s:.1f} s): identical (algo, channels), "
+        f"algorithms {ig_algos}, faults {ig['torch']['faults']}, merged "
+        f"maps identical; launches cuda32 {ig['cuda32']['launches']}, "
+        f"cuda {ig['cuda']['launches']}; step (decide + host read + pick) "
+        + "; ".join(f"{t} p50 {v['p50_us']:.1f} us p99 {v['p99_us']:.1f} us"
+                    for t, v in step.items()) + f"; {smi}")
+    sel32 = ig["cuda32"]["sel"]
+    from repro_torch.collectives.ingraph import CURSOR_KEY, FAULT_KEY
+    from repro_torch.core import torchc
+    ctx32 = torchc.words_to_pairs(sel32._ctx_vec(
+        {"coll_type": 0, "msg_size": 1 << 20, "n_ranks": 8, "comm_id": 0,
+         "max_channels": 32}))
+    t32 = kernel_timing(lib, sel32.kernel, ctx32,
+                        {m: v for m, v in ig["cuda32"]["states"][0].items()
+                         if m not in (FAULT_KEY, CURSOR_KEY)}, pairs=True)
+    check(t32["max_abs_err"] == 0, "pair-form kernel disagrees on the "
+          f"in-graph state (max abs err {t32['max_abs_err']})")
+    table.append({"name": f"policy_kernel32[{sel32.program.name}]",
+                  "route": "cuda", "source": KERNEL32_SOURCE,
+                  "replaces": REPLACES32,
+                  "launches": ig["cuda32"]["launches"],
+                  "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
+                  "plain_ms": t32["plain_ms"], "bound_ms": empty_ms,
+                  "bound_by": "launch", "library_ms": None})
+    log(f"[kernel32 time] {table[-1]['name']} {t32['ms']:.6f} ms per "
+        f"launch back to back on the card; empty launch {empty_ms:.6f}; "
+        f"plain (torchc.run32) {t32['plain_ms']:.6f} ms; {smi}")
+    ig_parts = {t: ingraph_breakdown(ig[t]["sel"], ig[t]["states"][0])
+                for t in ("cuda32", "cuda")}
+    log("[ingraph breakdown] median us per step (step = ctx + copy + "
+        "launch + clamp + read + host work): " + "; ".join(
+            f"{t} " + " ".join(f"{k} {v:.1f}" for k, v in p.items())
+            for t, p in ig_parts.items()))
+    ig_trace = device_trace(ingraph_window(sel32, ig["cuda32"]["states"][0]))
+    log_trace("[ingraph trace]", "cuda32 in-graph steps", ig_trace)
+
+    # ---- 9. collectives ----------------------------------------------------
+    t0 = time.time()
+    ranks = gloo_collectives()
+    coll_s = time.time() - t0
+    for r, rec in sorted(ranks.items()):
+        check(not rec["bad"], f"rank {r}: {rec['bad'][:3]}")
+        check(rec["builds"] == 0, f"rank {r} built {rec['builds']} kernels")
+        check(len(rec["algos"]) >= 2, f"rank {r} ran one algorithm "
+              f"{rec['algos']}")
+        check(rec["launches32"] == N_COLL_STEPS,
+              f"rank {r}: {rec['launches32']} pair-form launches")
+    check(ranks[0]["merged"] == 1 and
+          ranks[0]["count_delta"] == N_RANKS * N_COLL_STEPS,
+          f"merged rank states: {ranks[0].get('merged')} maps, count "
+          f"delta {ranks[0].get('count_delta')}")
+    coll_algos = sorted({a for r in ranks.values() for a in r["algos"]})
+    nccl = nccl_one_rank(dev)
+    log(f"[collectives] {N_RANKS}-rank gloo, {N_COLL_STEPS} steps per rank "
+        f"({coll_s:.1f} s): every output allclose to torch's collective "
+        f"(worst {max(r['worst']['simple'] for r in ranks.values())} "
+        f"SIMPLE, {max(r['worst']['bf16'] for r in ranks.values())} bf16 "
+        f"wire); algorithms {coll_algos}; "
+        f"rank states merged (count delta {ranks[0]['count_delta']}); "
+        f"1-rank NCCL on the card: {nccl['ran']}")
 
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
               "breakdown_us": parts, "trace": trace,
               "main_path_s": {"cuda": cuda_s, "interp": interp_s},
+              "differential32": diff32, "goldens32": gold,
+              "ingraph": {"seconds": ig_s, "step_us": step,
+                          "algos": ig_algos,
+                          "faults": ig["torch"]["faults"],
+                          "launches": {t: ig[t]["launches"]
+                                       for t in ("cuda32", "cuda")}},
+              "kernel32": t32, "ingraph_breakdown_us": ig_parts,
+              "ingraph_trace": ig_trace,
+              "collectives": {"seconds": coll_s, "ranks": ranks,
+                              "nccl": nccl},
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

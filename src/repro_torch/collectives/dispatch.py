@@ -14,13 +14,18 @@ which mirrors NCCL's tuner-plugin flow:
      keep sentinel cost so dispatch falls back gracefully
   4. clamp channels to the framework's max (NCCL passes maxChannels the
      tuner must respect)
-  5. emit the chosen algorithm's ops (the collective bodies and their
-     entry points come with the port's collective algorithms; this
-     module stops at ``decide()``, NCCL's ``getCollInfo``)
+  5. emit the chosen algorithm's ops over ``torch.distributed``
+     (:mod:`repro_torch.collectives.algorithms`)
 
-The dispatcher records a decision log; the policy *epoch* is exposed so
-callers can key their own caches on it (§T3: in-flight work finishes on
-the old policy).
+Decisions happen per call, on the host side of the launch (the
+information getCollInfo sees per call); the collective entry points
+(:meth:`CollectiveDispatcher.all_reduce` and friends) take the tensor,
+the axis name and the process group.  The axis name stays a string, so
+the communicator id (``_comm_id(axis_name, n)``) and every decision
+equal the reference's; ``n`` is the group's size.  The dispatcher
+records a decision log; the policy *epoch* is exposed so callers can
+key their own caches on it (§T3: in-flight work finishes on the old
+policy).
 
 Two-layer fast path
 -------------------
@@ -86,11 +91,14 @@ import struct
 import threading
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from ..core import faults as _faults
 from ..core.context import (Algo, AxisKind, CollType, PROFILER_CONTEXT,
                             Proto, make_ctx)
 from ..core.maps import RingView
 from ..core.runtime import PolicyRuntime, global_runtime
+from . import algorithms as alg
 from .cost_model import CostModel, HwProfile, TPU_V5E
 
 SENTINEL_COST = 1e9
@@ -190,6 +198,33 @@ def _comm_id(axis_name: str, n: int) -> int:
     return int.from_bytes(h[:4], "little") & 0x7FFFFFFF
 
 
+def _algo_fn(coll: int, algo: int) -> Callable:
+    """The emit table: ``(coll, algo)`` -> the algorithm that runs it."""
+    if coll == CollType.ALL_REDUCE:
+        return {
+            Algo.DEFAULT: alg.allreduce_native,
+            Algo.RING: alg.allreduce_ring,
+            Algo.TREE: alg.allreduce_tree,
+            Algo.BIDIR_RING: alg.allreduce_bidir_ring,
+        }[algo]
+    if coll == CollType.ALL_TO_ALL:
+        return {
+            Algo.DEFAULT: alg.all_to_all_native,
+            Algo.RING: alg.all_to_all_chunked,
+            Algo.TREE: alg.all_to_all_chunked,
+            Algo.BIDIR_RING: alg.all_to_all_chunked,
+        }[algo]
+    if coll == CollType.REDUCE_SCATTER:
+        if algo == Algo.DEFAULT:
+            return alg.reduce_scatter_native
+        return alg.reduce_scatter_ring
+    if coll == CollType.ALL_GATHER:
+        if algo == Algo.DEFAULT:
+            return alg.all_gather_native
+        return alg.all_gather_ring
+    raise KeyError(f"no implementation for coll {coll} algo {algo}")
+
+
 class CollectiveDispatcher:
     def __init__(self, runtime: Optional[PolicyRuntime] = None,
                  config: Optional[DispatchConfig] = None,
@@ -235,8 +270,7 @@ class CollectiveDispatcher:
         self._safe_mode = False
         self._safe_until = 0
         # mesh topology fed into every policy ctx (0 = unknown: policies
-        # treat the mesh as one node); participates in the cache key.
-        # Setting it (set_topology) comes with the port's mesh support
+        # treat the mesh as one node); participates in the cache key
         self._n_nodes = 0
         self._ranks_per_node = 0
         # mesh-telemetry merge plumbing: registered sync callbacks
@@ -250,6 +284,32 @@ class CollectiveDispatcher:
     # ------------------------------------------------------------------
     # mesh topology + sharded-telemetry merge
     # ------------------------------------------------------------------
+    def set_topology(self, mesh=None, *, n_nodes: int = 0,
+                     ranks_per_node: int = 0) -> Tuple[int, int]:
+        """Feed mesh topology into every subsequent policy decision.
+
+        Pass a ``torch.distributed.device_mesh.DeviceMesh`` (facts
+        derived via :func:`repro_torch.launch.mesh.mesh_topology`) or
+        explicit counts.  The pair lands in the ``n_nodes`` /
+        ``ranks_per_node`` ctx fields, so topology-aware policies
+        (``policies.mesh.topo_tuner``) can pick ring vs tree vs
+        hierarchical schedules; it also joins the decision-cache key —
+        changing topology can never serve a stale cached decision.
+        Returns the stored pair."""
+        if mesh is not None:
+            from ..launch.mesh import mesh_topology
+            topo = mesh_topology(mesh)
+            n_nodes = topo["n_nodes"]
+            ranks_per_node = topo["ranks_per_node"]
+        self._n_nodes = max(0, int(n_nodes))
+        self._ranks_per_node = max(0, int(ranks_per_node))
+        return self._n_nodes, self._ranks_per_node
+
+    @property
+    def topology(self) -> Tuple[int, int]:
+        """Current ``(n_nodes, ranks_per_node)`` fed to policies."""
+        return self._n_nodes, self._ranks_per_node
+
     def register_mesh_sync(self, fn: Callable[[], object]) -> None:
         """Register a callback :meth:`sync_telemetry` runs to pull
         per-device telemetry shards home — typically a multi-shard
@@ -608,6 +668,30 @@ class CollectiveDispatcher:
         return h
 
     # ------------------------------------------------------------------
+    def make_ingraph(self, *, tier: str = "cuda"):
+        """Route the attached tuner policy through an in-graph tier.
+
+        Returns ``(selector, state)``: an
+        :class:`~repro_torch.collectives.ingraph.InGraphSelector` built
+        from the highest-precedence attached tuner program (``tier=
+        "cuda"`` for the CUDA policy kernel over u64 words, ``"cuda32"``
+        for the pair-form kernel, ``"torch"`` for the plain version on
+        the CPU) plus device-resident map state seeded from THIS
+        runtime's live maps — host-accumulated telemetry moves to the
+        device, and from then on decisions run there.  Thread ``state``
+        through the steps; ``merge_shard_states`` (or
+        :func:`repro_torch.core.torchc.array_to_map` /
+        :func:`repro_torch.core.pair.array32_to_map`) writes it back to
+        the host maps."""
+        from .ingraph import InGraphSelector
+        lp = self.runtime.attached("tuner")
+        if lp is None:
+            raise RuntimeError(
+                "no tuner policy attached; attach one before routing "
+                "decisions in-graph")
+        sel = InGraphSelector(lp.program, tier=tier)
+        return sel, sel.init_state(self.runtime.maps)
+
     def _net_hook(self, d: Decision) -> None:
         if not self.config.enable_net_hook:
             return
@@ -629,6 +713,47 @@ class CollectiveDispatcher:
             return
         self.net_calls += 1
         self.net_bytes += d.size_bytes
+
+    # ------------------------------------------------------------------
+    # collective entry points: ``x`` is this rank's tensor, ``group`` the
+    # process group the axis runs over (None: the default group)
+    # ------------------------------------------------------------------
+    def _dispatch(self, coll: int, x, axis_name: str, axis_kind: int,
+                  group=None, **kw):
+        n = dist.get_world_size(group)
+        if n == 1 and coll in (CollType.ALL_REDUCE,):
+            return x
+        size_bytes = x.numel() * x.element_size()
+        d = self.decide(coll, size_bytes, n, axis_kind=axis_kind,
+                        dtype_bytes=x.element_size(), axis_name=axis_name)
+        fn = _algo_fn(coll, d.algo)
+        return fn(x, group, n_channels=d.channels, protocol=d.proto, **kw)
+
+    def all_reduce(self, x, axis_name: str, *, group=None,
+                   axis_kind: int = AxisKind.DATA):
+        return self._dispatch(CollType.ALL_REDUCE, x, axis_name, axis_kind,
+                              group)
+
+    # psum-compatible alias, as in the reference
+    def psum(self, x, axis_name: str, *, group=None,
+             axis_kind: int = AxisKind.DATA):
+        return self.all_reduce(x, axis_name, group=group,
+                               axis_kind=axis_kind)
+
+    def reduce_scatter(self, x, axis_name: str, *, group=None,
+                       axis_kind: int = AxisKind.DATA):
+        return self._dispatch(CollType.REDUCE_SCATTER, x, axis_name,
+                              axis_kind, group)
+
+    def all_gather(self, x, axis_name: str, *, group=None,
+                   axis_kind: int = AxisKind.MODEL):
+        return self._dispatch(CollType.ALL_GATHER, x, axis_name, axis_kind,
+                              group)
+
+    def all_to_all(self, x, axis_name: str, *, group=None,
+                   axis_kind: int = AxisKind.EXPERT, **kw):
+        return self._dispatch(CollType.ALL_TO_ALL, x, axis_name, axis_kind,
+                              group, **kw)
 
     # ------------------------------------------------------------------
     # profiler ctx fast path: every profiler field is a read-only u64 in

@@ -5,11 +5,16 @@ Layers (copies of the reference's JAX-free core unless noted):
   verifier               — load-time static verification
   vm                     — interpreter (oracle)
   torchc                 — the plain PyTorch policy kernel (port)
-  cudac                  — the hand-written CUDA policy kernel (port)
-  bridge                 — device-resident map state behind the runtime
+  cudac                  — the hand-written CUDA policy kernel, u64 words
+                           and the pair form (port)
+  pair                   — the pair layout of the policy state (port)
+  bridge                 — device-resident map state behind the runtime,
+                           single-shard or one copy per shard
+  shardmerge             — the deterministic merge of per-shard state
   maps                   — typed cross-plugin state
   runtime                — load/attach/hot-reload lifecycle, tier selection,
-                           per-link circuit breakers (port: cuda/torch/interp)
+                           per-link circuit breakers (port: cuda/cuda32/
+                           torch/interp)
   faults                 — deterministic fault injection at trust boundaries
 """
 

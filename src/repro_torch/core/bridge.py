@@ -1,8 +1,8 @@
 """The device bridge — the runtime's host-closure contract over the
 policy kernel, with map state resident on the device.
 
-Port of the single-shard ``repro.core.pallasc.DeviceBridge`` /
-``compile_host``.  Every contract of the reference holds:
+Port of ``repro.core.pallasc.DeviceBridge`` / ``compile_host``.  Every
+contract of the reference holds:
 
   * **upload** — version-gated: a map is (re-)uploaded only when the
     host mutated it since the bridge last saw it (``BpfMap.version``;
@@ -32,18 +32,29 @@ Port of the single-shard ``repro.core.pallasc.DeviceBridge`` /
 Tiers: ``"cuda"`` keeps the maps on the CUDA device and runs the
 hand-written kernel (:class:`repro_torch.core.cudac.PolicyKernel`,
 built when the bridge is constructed — a build failure is a load-time
-rejection); ``"torch"`` keeps them on the CPU, where the same wrapper
-runs the plain PyTorch version.  Per call the ctx travels host->device
-in one copy and comes back together with the return word in one copy
-(they share one ``int64[n_fields + 1]`` buffer).
+rejection); ``"cuda32"`` runs the same decision as the pair-form kernel
+over ``[lo, hi]`` pairs (:mod:`repro_torch.core.pair`; ``lru_hash``
+programs are rejected, as the reference's ``pallas32`` rejects them);
+``"torch"`` keeps the maps on the CPU, where the same wrapper runs the
+plain PyTorch version.  Per call the ctx travels host->device in one
+copy and comes back together with the return word in one copy (they
+share one ``int64[n_fields + 1]`` buffer, viewed as pairs on
+``cuda32``).
 
 Deferred-mode conflict rule (as in the reference): between flushes the
 device owns the kernel-written maps; a racing host write to such a map
 is discarded at the next flush.  Host code that must write one calls
 :meth:`flush` first.
 
-Mesh mode (``n_shards > 1``, the shard merge) is not ported yet and
-raises.
+Mesh mode (``n_shards > 1``, the reference's ``pallasc.py:348-361``):
+one device-resident state copy per shard (device or rank index, chosen
+with :meth:`DeviceBridge.set_shard`), each seeded from the host maps at
+its own upload and carrying a per-map write cursor (kernel calls that
+wrote the map on that shard).  Per-call writeback cannot reconcile
+shards, so mesh mode requires ``sync="deferred"``; ``flush()`` runs the
+deterministic shard merge (:mod:`repro_torch.core.shardmerge`): counter
+slots land as the sum of per-shard deltas, ``merge="max"`` cells go to
+the shard with the highest cursor, hash maps reconcile per key.
 """
 
 from __future__ import annotations
@@ -51,7 +62,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,10 +70,14 @@ import torch
 from ..device import require_cuda
 from . import faults as _faults
 from .context import Algo, Proto
-from .cudac import PolicyKernel
+from .cudac import PolicyKernel, check_supported32
 from .maps import BpfMap
+from .pair import array32_to_map, map_to_array32
 from .program import Program
-from .torchc import array_to_map, map_to_array, written_map_names
+from .shardmerge import (MERGEABLE_KINDS, Shard, merge_map_shards,
+                         pairs_to_u64)
+from .torchc import (array_to_map, map_to_array, words_to_pairs,
+                     written_map_names)
 from .verifier import verify_with_info
 
 M64 = (1 << 64) - 1
@@ -80,10 +95,17 @@ class BridgeStats:
     map_uploads: int = 0
     map_downloads: int = 0
     flushes: int = 0
+    # multi-shard bridges: merged flushes performed and hash keys dropped
+    # to capacity (E2BIG) during a merge
+    shard_merges: int = 0
+    merge_dropped_keys: int = 0
     upload_retries: int = 0
     host_fallbacks: int = 0
     download_failures: int = 0
     domain_faults: int = 0
+
+
+TIERS = ("cuda", "cuda32", "torch")
 
 
 class DeviceBridge:
@@ -95,30 +117,44 @@ class DeviceBridge:
         if sync not in ("step", "deferred"):
             raise BridgeError(f"unknown bridge sync policy {sync!r}; "
                               "use 'step' or 'deferred'")
-        if n_shards != 1:
+        if n_shards < 1:
+            raise BridgeError(f"n_shards must be >= 1, got {n_shards}")
+        if n_shards > 1 and sync != "deferred":
             raise BridgeError(
-                f"n_shards={n_shards}: the mesh-mode bridge (per-shard "
-                "state and the shard merge at flush) is not ported yet; "
-                "use n_shards=1")
-        if tier == "cuda":
-            device = require_cuda("the cuda tier")
-        elif tier == "torch":
-            device = torch.device("cpu")
-        else:
+                "multi-shard bridges accumulate per-shard deltas and merge "
+                "at flush(); per-call writeback cannot reconcile shards — "
+                "use sync='deferred'")
+        if tier not in TIERS:
             raise BridgeError(f"unknown bridge tier {tier!r}; "
-                              "use 'cuda' or 'torch'")
+                              f"use one of {', '.join(TIERS)}")
+        if tier == "cuda32":
+            check_supported32(prog)
+        device = require_cuda(f"the {tier} tier") if tier != "torch" \
+            else torch.device("cpu")
         if vinfo is None:
             vinfo = verify_with_info(prog)
         self.kernel = PolicyKernel(prog, vinfo)
-        if tier == "cuda":
+        if device.type == "cuda":
             self.kernel.build()
         self.tier = tier
+        self.word_width = 32 if tier == "cuda32" else 64
         self.sync = sync
         self.device = device
         self._prog = prog
         self._maps = resolved_maps
         self._names = list(self.kernel.names)
         self._written = written_map_names(prog, vinfo) & set(self._names)
+        self.n_shards = n_shards
+        if n_shards > 1:
+            bad = sorted(n for n in self._written
+                         if prog.map_decl(n).kind not in MERGEABLE_KINDS)
+            if bad:
+                kinds = ", ".join(f"{n} ({prog.map_decl(n).kind})"
+                                  for n in bad)
+                raise BridgeError(
+                    f"policy '{prog.name}' writes map(s) with no order-free "
+                    f"shard merge: {kinds}; mergeable kinds: "
+                    f"{', '.join(MERGEABLE_KINDS)}")
         n = self.kernel.n_fields
         self._n = n
         # ctx and the return word share one buffer: one copy each way
@@ -137,15 +173,46 @@ class DeviceBridge:
             self._domain_offs = (ct.offset_of("algorithm"),
                                  ct.offset_of("protocol"),
                                  ct.offset_of("n_channels"))
-        self._dev: Dict[str, torch.Tensor] = {}
-        self._seen: Dict[str, int] = {}
-        self._device_dirty: set = set()
+        self._shard = 0
+        # one device-resident state copy per shard; the call path reads
+        # the selected shard's through the properties below
+        self._devs: List[Dict[str, torch.Tensor]] = \
+            [{} for _ in range(n_shards)]
+        self._seens: List[Dict[str, int]] = [{} for _ in range(n_shards)]
+        self._dirtys: List[set] = [set() for _ in range(n_shards)]
+        # mesh mode only: per-shard seed snapshots (u64 host images, the
+        # merge's bases) and per-map write cursors
+        self._bases: List[Dict[str, np.ndarray]] = \
+            [{} for _ in range(n_shards)]
+        self._cursors: List[Dict[str, int]] = [{} for _ in range(n_shards)]
         self._lock = threading.Lock()
         self.stats = BridgeStats()
+
+    @property
+    def _dev(self) -> Dict[str, torch.Tensor]:
+        return self._devs[self._shard]
+
+    @property
+    def _seen(self) -> Dict[str, int]:
+        return self._seens[self._shard]
+
+    @property
+    def _device_dirty(self) -> set:
+        return self._dirtys[self._shard]
+
+    def set_shard(self, shard: int) -> None:
+        """Select which shard (device or rank index) subsequent calls run
+        against."""
+        if not 0 <= shard < self.n_shards:
+            raise BridgeError(
+                f"shard {shard} out of range for n_shards={self.n_shards}")
+        with self._lock:
+            self._shard = shard
 
     # -- host map -> device ------------------------------------------------
     def _upload_dirty(self) -> None:
         _faults.fire("bridge_upload", self.tier)
+        to_array = map_to_array32 if self.word_width == 32 else map_to_array
         for n in self._names:
             m = self._maps[n]
             if n not in self._dev or self._seen.get(n) != m.version:
@@ -155,13 +222,19 @@ class DeviceBridge:
                 with m.lock:
                     # snapshot + version under ONE critical section, so
                     # a host write landing mid-copy is never masked
-                    self._dev[n] = map_to_array(m, self.device)
+                    self._dev[n] = to_array(m, self.device)
                     self._seen[n] = m.version
+                    if self.n_shards > 1 and n in self._written:
+                        # the merge base: the state THIS shard was seeded
+                        # from; its flush contribution is a delta on it
+                        self._bases[self._shard][n] = m.to_device()
+                        self._cursors[self._shard][n] = 0
                 self.stats.map_uploads += 1
 
     # -- device -> host map ------------------------------------------------
     def _writeback(self, names) -> None:
         _faults.fire("bridge_download", self.tier)
+        to_map = array32_to_map if self.word_width == 32 else array_to_map
         for n in names:
             arr = self._dev.get(n)
             if arr is None:
@@ -169,7 +242,7 @@ class DeviceBridge:
             m = self._maps[n]
             with m.lock:
                 # our own writeback must not read as a host mutation
-                array_to_map(arr, m)
+                to_map(arr, m)
                 self._seen[n] = m.version
             self._device_dirty.discard(n)
             self.stats.map_downloads += 1
@@ -209,7 +282,12 @@ class DeviceBridge:
             self._io_np[:n] = np.frombuffer(ctx_buf, dtype="<i8")
             ctx = self._io[:n]
             ctx.copy_(self._io_host[:n], non_blocking=True)
-            self.kernel.launch(ctx, self._io[n:], self._dev)
+            if self.word_width == 32:
+                self.kernel.launch32(words_to_pairs(ctx),
+                                     words_to_pairs(self._io[n:]).reshape(2),
+                                     self._dev)
+            else:
+                self.kernel.launch(ctx, self._io[n:], self._dev)
             self._io_host.copy_(self._io, non_blocking=True)
             if self.device.type == "cuda":
                 torch.cuda.current_stream().synchronize()
@@ -230,46 +308,99 @@ class DeviceBridge:
                     # contained: keep the maps device-dirty so flush()
                     # retries the writeback later
                     self.stats.download_failures += 1
-                    self._device_dirty |= self._written
+                    self._device_dirty.update(self._written)
             else:
-                self._device_dirty |= self._written
+                self._device_dirty.update(self._written)
+                if self.n_shards > 1:
+                    cur = self._cursors[self._shard]
+                    for w in self._written:
+                        cur[w] = cur.get(w, 0) + 1
             return rv
 
     def flush(self) -> int:
         """Write every device-resident KERNEL-WRITABLE map back to the
-        host maps; returns how many were written.  Lookup-only maps are
-        never flushed."""
+        host maps (mesh mode: merge the shards into them); returns how
+        many were written.  Lookup-only maps are never flushed."""
         with self._lock:
             _faults.fire("bridge_flush", self.tier)
-            # only maps with unflushed kernel writes: under "step" a
-            # successful call already wrote them back, and the host copy
-            # may have moved on since (another program sharing the map)
-            names = [n for n in self._names if n in self._device_dirty]
-            self._writeback(names)
+            if self.n_shards > 1:
+                synced = self._merged_flush()
+            else:
+                # only maps with unflushed kernel writes: under "step" a
+                # successful call already wrote them back, and the host
+                # copy may have moved on since (another program sharing
+                # the map)
+                names = [n for n in self._names if n in self._device_dirty]
+                self._writeback(names)
+                synced = len(names)
             self.stats.flushes += 1
             self.stats.domain_faults += self._pending_domain_faults
             self._pending_domain_faults = 0
-            return len(names)
+            return synced
+
+    def _host_image(self, arr: torch.Tensor) -> np.ndarray:
+        a = arr.detach().cpu().numpy()
+        return pairs_to_u64(a) if self.word_width == 32 else a.view("<u8")
+
+    def _merged_flush(self) -> int:
+        """Mesh-mode flush: reconcile every shard's copy of each written
+        map against the CURRENT host state with the deterministic shard
+        merge, then drop all shard copies so the next call per shard
+        re-seeds from the merged view.  Returns maps merged."""
+        synced = 0
+        for n in self._names:
+            if n not in self._written:
+                continue
+            decl = self._prog.map_decl(n)
+            shards = []
+            for s in range(self.n_shards):
+                arr = self._devs[s].get(n)
+                if arr is None or self._cursors[s].get(n, 0) == 0:
+                    continue  # never seeded, or seeded but never written
+                shards.append(Shard(s, self._host_image(arr),
+                                    self._cursors[s][n], self._bases[s][n]))
+            if not shards:
+                continue
+            mstats: dict = {}
+            m = self._maps[n]
+            with m.lock:
+                m.from_device(merge_map_shards(decl, m.to_device(), shards,
+                                               mstats))
+            self.stats.merge_dropped_keys += mstats.get("dropped_keys", 0)
+            self.stats.map_downloads += 1
+            synced += 1
+            # every shard copy is stale against the merged host state;
+            # drop them so the next per-shard call re-seeds
+            for s in range(self.n_shards):
+                self._drop(s, n)
+        if synced:
+            self.stats.shard_merges += 1
+        return synced
+
+    def _drop(self, s: int, name: str) -> None:
+        self._devs[s].pop(name, None)
+        self._seens[s].pop(name, None)
+        self._dirtys[s].discard(name)
+        self._bases[s].pop(name, None)
+        self._cursors[s].pop(name, None)
 
     def invalidate(self, name: Optional[str] = None) -> None:
         """Drop the device copy of ``name`` (or all maps) so the next call
         re-uploads — for host writes that bypass the versioned surface."""
         with self._lock:
-            if name is None:
-                self._dev.clear()
-                self._seen.clear()
-                self._device_dirty.clear()
-            else:
-                self._dev.pop(name, None)
-                self._seen.pop(name, None)
-                self._device_dirty.discard(name)
+            for s in range(self.n_shards):
+                for n in ([name] if name is not None else self._names):
+                    self._drop(s, n)
 
 
 def compile_host(prog: Program, resolved_maps: Dict[str, BpfMap],
                  vinfo=None, *, tier: str = "cuda", sync: str = "step",
                  n_shards: int = 1) -> DeviceBridge:
-    """Wrap the policy kernel (``tier="cuda"``) or its plain PyTorch
-    version (``tier="torch"``) behind the host closure signature
-    ``fn(ctx_buf) -> int`` the runtime invokes."""
+    """Wrap the policy kernel (``tier="cuda"``), its pair form
+    (``"cuda32"``) or its plain PyTorch version (``"torch"``) behind the
+    host closure signature ``fn(ctx_buf) -> int`` the runtime invokes.
+    ``n_shards > 1`` builds a mesh-mode bridge (one device-resident state
+    copy per shard, :meth:`DeviceBridge.set_shard`; ``flush()`` merges) —
+    requires ``sync="deferred"``."""
     return DeviceBridge(prog, resolved_maps, vinfo, tier=tier, sync=sync,
                         n_shards=n_shards)

@@ -1,9 +1,23 @@
 """cudac — a verified policy program as one hand-written CUDA kernel.
 
-The Hopper counterpart of the TPU policy kernel
-``repro/core/pallasc.py:175`` (``_build_pallas_fn``: one ``pl.pallas_call``
-running the ``jaxc`` lowering over the ctx vector and every map tile).
-Every in-graph decision of the port runs through it.
+The Hopper counterpart of the TPU policy kernels
+``repro/core/pallasc.py:175`` (``_build_pallas_fn``, B1: one
+``pl.pallas_call`` running the ``jaxc`` lowering over the ctx vector and
+every map tile) and ``repro/core/pallasc.py:229`` (``_build_pallas_fn32``,
+B2: the same decision over ``(lo, hi)`` uint32 pairs through
+``lower32._Lowerer32``).  Every device decision of the port runs
+through it.
+
+B2 on Hopper is a second entry of the same translation unit, not a
+second arithmetic.  The reference splits every u64 operation into
+32-bit carry chains, a 16-bit-limb multiply and a 64-step long division
+because Mosaic lowers no 64-bit integers; Hopper's compiler lowers
+``u64``.  The pair layout ``[..., 2]`` holding ``[lo, hi]`` has the
+bytes of a little-endian u64 array, so ``<prefix>kernel32`` runs the u64
+decision over its uint32 operands viewed as words (the wrapper checks
+8-byte alignment) and writes the return value as ``[lo, hi]``.  Like
+B1 it is bound by its launch, not by bytes or operations: one thread
+touches a few hundred bytes.
 
 Code generation
 ---------------
@@ -20,7 +34,8 @@ region facts and loop bounds):
   structured ``if``/``while`` regions where the post-dominator shape
   allows and as a label-per-block ``goto`` skeleton otherwise;
 * a ``<<<1,1>>>`` kernel and an ``extern "C"`` launcher that returns
-  ``cudaGetLastError()``.
+  ``cudaGetLastError()``, over u64 words and, for programs without an
+  ``lru_hash`` map (the pair tier's rule), over ``[lo, hi]`` pairs.
 
 Registers are ``u64`` locals; pointers are real device addresses — the
 ctx tensor, rows of the map tensors, the local frame — so a map-value
@@ -36,13 +51,15 @@ Build and launch
 -fPIC`` into a ``.so`` loaded with ctypes, at first use, under
 ``build/repro_torch_kernels/`` in the checkout, keyed by the hash of the
 source and flags: a warm ``link.replace()`` rebuilds nothing.
-:func:`build_all` runs the ``nvcc`` builds in parallel.
+:func:`build_all` runs the ``nvcc`` builds in parallel;
+:func:`build_bundle` puts many small programs into each library, each
+under its own symbol prefix.
 
 :class:`PolicyKernel` launches on PyTorch's current stream and updates
 its ctx and map tensors **in place** (``int64`` u64 bit patterns on one
 CUDA device).  Given CPU tensors it runs the plain PyTorch version
-(:mod:`repro_torch.core.torchc`) instead; given CUDA tensors it launches
-the kernel or raises — there is no fallback.
+(:mod:`repro_torch.core.torchc`, ``run`` and ``run32``) instead; given
+CUDA tensors it launches the kernel or raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -117,8 +134,9 @@ class _CudaGen:
     """Emits the program's device functions (structured with a goto
     fallback, after ``repro.core.cc._CGen``)."""
 
-    def __init__(self, prog: Program, vinfo):
+    def __init__(self, prog: Program, vinfo, prefix: str):
         self.prog = prog
+        self.prefix = prefix
         self.fns = torchc.fn_infos(vinfo)
         self.map_index = {d.name: i for i, d in enumerate(prog.maps)}
         self.structured = True
@@ -154,7 +172,7 @@ class _CudaGen:
         elif op == "call":
             self._emit_call(pc, insn)
         elif op == "call_fn":
-            self.w(f"r0 = bpf_fn{insn.imm}(M, r1, r2, r3, r4, r5);")
+            self.w(f"r0 = {self.prefix}fn{insn.imm}(M, r1, r2, r3, r4, r5);")
             self.w("r1 = 0; r2 = 0; r3 = 0; r4 = 0; r5 = 0;")
         elif is_alu(op):
             self._emit_alu(insn)
@@ -434,7 +452,8 @@ class _CudaGen:
 
     def generate(self) -> str:
         nsub = len(self.prog.subprogs)
-        sig = ("BPF_DEV u64 bpf_fn{}(u64 *const *M, u64 r1, u64 r2, "
+        p = self.prefix
+        sig = (f"BPF_DEV u64 {p}fn{{}}(u64 *const *M, u64 r1, u64 r2, "
                "u64 r3, u64 r4, u64 r5)")
         frame = [f"    u64 fr[{STACK_SIZE // 8}] = {{}};",
                  f"    u64 r10 = bpf_ptr(fr + {STACK_SIZE // 8});",
@@ -444,7 +463,7 @@ class _CudaGen:
             out += [sig.format(i) + " {",
                     "    u64 r0 = 0, r6 = 0, r7 = 0, r8 = 0, r9 = 0;"]
             out += frame + self._fn_body(1 + i) + ["}", ""]
-        out += ["BPF_DEV u64 bpf_main(u64 *const *M, u64 *ctx) {",
+        out += [f"BPF_DEV u64 {p}main(u64 *const *M, u64 *ctx) {{",
                 "    u64 r0 = 0, r1 = bpf_ptr(ctx), r2 = 0, r3 = 0, r4 = 0,"
                 " r5 = 0, r6 = 0, r7 = 0, r8 = 0, r9 = 0;"]
         out += frame + self._fn_body(0) + ["}", ""]
@@ -454,44 +473,73 @@ class _CudaGen:
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
     """One program's translation unit.  ``device`` is the helper runtime
-    plus the program's ``__device__`` functions (host-compilable with
-    ``BPF_DEV`` redefined); ``launcher`` is the kernel and its C entry."""
-    device: str
+    (``header``) plus the program's ``__device__`` functions (``body``;
+    host-compilable with ``BPF_DEV`` redefined); ``launcher`` holds the
+    kernels and their C entries: ``<prefix>kernel`` over u64 words and,
+    for programs the pair tier takes, ``<prefix>kernel32`` over
+    ``[lo, hi]`` pairs."""
+    header: str
+    body: str
     launcher: str
     structured: bool
+
+    @property
+    def device(self) -> str:
+        return self.header + "\n" + self.body
 
     @property
     def full(self) -> str:
         return self.device + "\n" + self.launcher
 
 
-def emit_source(prog: Program, vinfo) -> KernelSource:
-    """Generate the CUDA translation unit for a verified program."""
-    gen = _CudaGen(prog, vinfo)
-    body = gen.generate()
-    header = (CSRC / "policy_kernel.cuh").read_text()
+def supports_pairs(prog: Program) -> bool:
+    """The pair tier lowers no ``lru_hash`` map (the reference's rule)."""
+    return not any(d.kind == "lru_hash" for d in prog.maps)
+
+
+def _entry(prog: Program, p: str, word: str, suffix: str, ret: List[str]
+           ) -> List[str]:
     nm = len(prog.maps)
-    kparams = ", ".join(["u64 *ctx", "u64 *ret"]
-                        + [f"u64 *m{i}" for i in range(nm)])
+    kparams = ", ".join([f"{word} *ctx", f"{word} *ret"]
+                        + [f"{word} *m{i}" for i in range(nm)])
     lparams = ", ".join(["void *ctx", "void *ret"]
                         + [f"void *m{i}" for i in range(nm)]
                         + ["void *stream"])
-    margs = ", ".join(f"m{i}" for i in range(nm)) or "nullptr"
-    kargs = ", ".join(["(u64 *)ctx", "(u64 *)ret"]
-                      + [f"(u64 *)m{i}" for i in range(nm)])
-    launcher = "\n".join([
-        f"// policy '{prog.name}': one thread runs the whole decision",
-        f"extern \"C\" __global__ void bpf_kernel({kparams}) {{",
+    margs = ", ".join(f"(u64 *)m{i}" for i in range(nm)) or "nullptr"
+    kargs = ", ".join([f"({word} *)ctx", f"({word} *)ret"]
+                      + [f"({word} *)m{i}" for i in range(nm)])
+    return [
+        f"extern \"C\" __global__ void {p}kernel{suffix}({kparams}) {{",
         f"    u64 *const M[{max(nm, 1)}] = {{{margs}}};",
-        "    *ret = bpf_main(M, ctx);",
+        *ret,
         "}",
         "",
-        f"extern \"C\" int bpf_launch({lparams}) {{",
-        f"    bpf_kernel<<<1, 1, 0, (cudaStream_t)stream>>>({kargs});",
+        f"extern \"C\" int {p}launch{suffix}({lparams}) {{",
+        f"    {p}kernel{suffix}<<<1, 1, 0, (cudaStream_t)stream>>>({kargs});",
         "    return (int)cudaGetLastError();",
         "}",
-        ""])
-    return KernelSource(device=header + "\n" + body, launcher=launcher,
+        ""]
+
+
+def emit_source(prog: Program, vinfo, prefix: str = "bpf_") -> KernelSource:
+    """Generate the CUDA translation unit for a verified program.  Every
+    program-specific symbol starts with ``prefix``, so several programs
+    can share one translation unit (:func:`build_bundle`)."""
+    gen = _CudaGen(prog, vinfo, prefix)
+    body = gen.generate()
+    header = (CSRC / "policy_kernel.cuh").read_text()
+    p = prefix
+    launcher = [f"// policy '{prog.name}': one thread runs the whole decision"]
+    launcher += _entry(prog, p, "u64", "", [f"    *ret = {p}main(M, ctx);"])
+    if supports_pairs(prog):
+        # B2, the pair form: the same decision over uint32 [lo, hi]
+        # operands, which hold the bytes of little-endian u64 words
+        launcher += _entry(prog, p, "uint32_t", "32", [
+            f"    u64 r = {p}main(M, (u64 *)ctx);",
+            "    ret[0] = (uint32_t)r;",
+            "    ret[1] = (uint32_t)(r >> 32);"])
+    return KernelSource(header=header, body=body,
+                        launcher="\n".join(launcher),
                         structured=gen.structured)
 
 
@@ -568,6 +616,29 @@ def compile_library(src: str) -> ctypes.CDLL:
 # the wrapper
 # ---------------------------------------------------------------------------
 
+def check_supported32(prog: Program) -> None:
+    """Raise :class:`CudacError` if ``prog`` cannot run as the pair-form
+    kernel: the ``cuda`` tier's rejections, and ``lru_hash`` maps (the
+    reference's ``pallas32`` rejection, its text kept)."""
+    try:
+        torchc.check_supported(prog)
+    except torchc.TorchcError as e:
+        raise CudacError(
+            f"policy '{prog.name}' cannot lower to the cuda32 tier: {e}"
+        ) from e
+    lru = [d.name for d in prog.maps if d.kind == "lru_hash"]
+    if lru:
+        raise CudacError(
+            f"policy '{prog.name}' uses lru_hash map(s) "
+            f"{', '.join(repr(n) for n in lru)}; the 32-bit-pair tier does "
+            "not lower LRU recency/clock metadata.  Workarounds: declare "
+            "the map with kind=\"hash\" (the fixed-capacity open-addressing "
+            "table lowers in-graph on every tier, including cuda32 — you "
+            "lose eviction, inserts fail with E2BIG when full), keep "
+            "word_width=64 (tier=\"cuda\"), or run this policy on a host "
+            "tier (interp), where lru_hash is fully supported")
+
+
 class PolicyKernel:
     """One verified program as a CUDA kernel, with its plain version.
 
@@ -576,10 +647,18 @@ class PolicyKernel:
     ``int64[device_shape]``, all contiguous on one device.  On CUDA
     tensors it launches the kernel (``<<<1,1>>>`` on the current stream,
     no synchronisation) and counts the launch in :attr:`launches`; on
-    CPU tensors it runs :mod:`torchc`.  The kernel library is built at
-    first CUDA use, or up front with :meth:`build`."""
+    CPU tensors it runs :mod:`torchc`.
 
-    def __init__(self, prog: Program, vinfo=None):
+    ``launch32(ctx2, ret2, maps2)`` is the pair form (B2): ``ctx2``
+    ``int32[n_fields, 2]``, ``ret2`` ``int32[2]``, each map
+    ``int32[*device_shape, 2]``, every u64 as ``[lo, hi]``
+    (:mod:`repro_torch.core.pair`); counted in :attr:`launches32`, its
+    plain version is :func:`torchc.run32`.
+
+    The kernel library is built at first CUDA use, or up front with
+    :meth:`build`; ``prefix`` names the program's symbols in it."""
+
+    def __init__(self, prog: Program, vinfo=None, *, prefix: str = "bpf_"):
         try:
             torchc.check_supported(prog)
         except torchc.TorchcError as e:
@@ -590,44 +669,68 @@ class PolicyKernel:
             vinfo = verify_with_info(prog)
         self.prog = prog
         self.vinfo = vinfo
+        self.prefix = prefix
         self.names = [d.name for d in prog.maps]
         self.shapes = {d.name: device_shape(d.kind, d.value_size,
                                             d.max_entries)
                        for d in prog.maps}
         self.n_fields = prog.ctx_type.size // 8
-        self.source = emit_source(prog, vinfo)
+        # whether the pair-form entry exists (the pair tier's rule)
+        self.pairs = supports_pairs(prog)
+        self.source = emit_source(prog, vinfo, prefix)
         self.launches = 0
+        self.launches32 = 0
         self._fn = None
+        self._fn32 = None
 
     @property
     def name(self) -> str:
         return self.prog.name
 
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        nargs = 3 + len(self.names)
+        fn = getattr(lib, f"{self.prefix}launch")
+        fn.argtypes = [ctypes.c_void_p] * nargs
+        fn.restype = ctypes.c_int
+        if self.pairs:
+            fn32 = getattr(lib, f"{self.prefix}launch32")
+            fn32.argtypes = [ctypes.c_void_p] * nargs
+            fn32.restype = ctypes.c_int
+            self._fn32 = fn32
+        self._fn = fn
+
     def build(self) -> "PolicyKernel":
         if self._fn is None:
-            fn = compile_library(self.source.full).bpf_launch
-            fn.argtypes = [ctypes.c_void_p] * (3 + len(self.names))
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._bind(compile_library(self.source.full))
         return self
 
-    def _check(self, ctx: torch.Tensor, ret: torch.Tensor,
-               maps: Dict[str, torch.Tensor]) -> None:
-        dev = ctx.device
-        want = [("ctx", ctx, (self.n_fields,)), ("ret", ret, (1,))]
-        want += [(n, maps[n], self.shapes[n]) for n in self.names]
+    def _check(self, want, dtype, align: int) -> None:
+        dev = want[0][1].device
         for what, t, shape in want:
-            if t.device != dev or t.dtype != torch.int64 \
+            if t.device != dev or t.dtype != dtype \
                     or tuple(t.shape) != tuple(shape) \
-                    or not t.is_contiguous():
+                    or not t.is_contiguous() or t.data_ptr() % align:
                 raise CudacError(
                     f"policy kernel '{self.name}': {what} must be a "
-                    f"contiguous int64{list(shape)} on {dev}, got "
-                    f"{t.dtype}{list(t.shape)} on {t.device}")
+                    f"contiguous {str(dtype)[6:]}{list(shape)} on {dev}"
+                    f"{f' aligned to {align} bytes' if align > 1 else ''}"
+                    f", got {t.dtype}{list(t.shape)} on {t.device}")
+
+    def _device_ok(self, dev: torch.device) -> None:
+        if dev.type != "cuda":
+            raise DeviceError(f"policy kernel '{self.name}': no kernel "
+                              f"for device {dev}")
+        if dev.index != torch.cuda.current_device():
+            raise DeviceError(
+                f"policy kernel '{self.name}': tensors on {dev} "
+                f"but the current device is cuda:"
+                f"{torch.cuda.current_device()}")
 
     def launch(self, ctx: torch.Tensor, ret: torch.Tensor,
                maps: Dict[str, torch.Tensor]) -> None:
-        self._check(ctx, ret, maps)
+        want = [("ctx", ctx, (self.n_fields,)), ("ret", ret, (1,))]
+        want += [(n, maps[n], self.shapes[n]) for n in self.names]
+        self._check(want, torch.int64, 1)
         if ctx.device.type == "cpu":
             r, c, ms = torchc.run(self.prog, self.vinfo, ctx, maps)
             ctx.copy_(c)
@@ -635,14 +738,7 @@ class PolicyKernel:
             for n in self.names:
                 maps[n].copy_(ms[n])
             return
-        if ctx.device.type != "cuda":
-            raise DeviceError(f"policy kernel '{self.name}': no kernel "
-                              f"for device {ctx.device}")
-        if ctx.device.index != torch.cuda.current_device():
-            raise DeviceError(
-                f"policy kernel '{self.name}': tensors on {ctx.device} "
-                f"but the current device is cuda:"
-                f"{torch.cuda.current_device()}")
+        self._device_ok(ctx.device)
         self.build()
         err = self._fn(ctx.data_ptr(), ret.data_ptr(),
                        *[maps[n].data_ptr() for n in self.names],
@@ -652,9 +748,61 @@ class PolicyKernel:
                              f"CUDA error {err}")
         self.launches += 1
 
+    def launch32(self, ctx2: torch.Tensor, ret2: torch.Tensor,
+                 maps2: Dict[str, torch.Tensor]) -> None:
+        if not self.pairs:
+            check_supported32(self.prog)        # raises: lru_hash
+        want = [("ctx", ctx2, (self.n_fields, 2)), ("ret", ret2, (2,))]
+        want += [(n, maps2[n], (*self.shapes[n], 2)) for n in self.names]
+        # the kernel reads each pair as one u64 word
+        self._check(want, torch.int32, 8)
+        if ctx2.device.type == "cpu":
+            r, c, ms = torchc.run32(self.prog, self.vinfo, ctx2, maps2)
+            ctx2.copy_(c)
+            ret2.copy_(r)
+            for n in self.names:
+                maps2[n].copy_(ms[n])
+            return
+        self._device_ok(ctx2.device)
+        self.build()
+        err = self._fn32(ctx2.data_ptr(), ret2.data_ptr(),
+                         *[maps2[n].data_ptr() for n in self.names],
+                         torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise CudacError(f"pair-form policy kernel '{self.name}' launch "
+                             f"failed: CUDA error {err}")
+        self.launches32 += 1
+
 
 def build_all(kernels: Iterable[PolicyKernel]) -> List[PolicyKernel]:
     """Build every kernel, one nvcc process per source, in parallel."""
     kernels = list(kernels)
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
         return list(ex.map(PolicyKernel.build, kernels))
+
+
+def build_bundle(kernels: Iterable[PolicyKernel], per_library: int = 48
+                 ) -> List[PolicyKernel]:
+    """Build many small kernels into shared libraries of up to
+    ``per_library`` programs each (one helper runtime per library, one
+    nvcc process per library, all in parallel): nvcc's fixed cost per
+    process dominates a program of a few instructions.  Every kernel
+    needs its own ``prefix``."""
+    kernels = list(kernels)
+    prefixes = [k.prefix for k in kernels]
+    if len(set(prefixes)) != len(prefixes):
+        raise CudacError("build_bundle: kernels share a symbol prefix")
+    groups = [kernels[i:i + per_library]
+              for i in range(0, len(kernels), per_library)]
+
+    def one(group: List[PolicyKernel]) -> None:
+        src = "\n".join([group[0].source.header]
+                         + [k.source.body + "\n" + k.source.launcher
+                            for k in group])
+        lib = compile_library(src)
+        for k in group:
+            k._bind(lib)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
+        list(ex.map(one, groups))
+    return kernels

@@ -251,11 +251,14 @@ class PolicyRuntime:
         (:mod:`repro_torch.core.cudac`), the default.  Without a CUDA
         device the runtime refuses to construct; it never quietly runs
         on the CPU.
+      * ``"cuda32"`` — the same kernel in the pair form (every u64 as a
+        ``[lo, hi]`` uint32 pair, :mod:`repro_torch.core.pair`; no
+        ``lru_hash`` maps), also on the card
       * ``"torch"``  — the kernel's plain PyTorch version
         (:mod:`repro_torch.core.torchc`) on the CPU
       * ``"interp"`` — reference interpreter (differential ground truth)
 
-    ``cuda`` and ``torch`` run behind a device-resident
+    ``cuda``, ``cuda32`` and ``torch`` run behind a device-resident
     :class:`~repro_torch.core.bridge.DeviceBridge`: map uploads are
     version-gated, only statically-written maps sync back per call, and
     the runtime flushes the bridge at every T3 boundary (detach /
@@ -267,7 +270,7 @@ class PolicyRuntime:
     compiler the tier selects.  ``use_interpreter=True`` is the legacy
     spelling of ``tier="interp"``."""
 
-    TIERS = ("cuda", "torch", "interp")
+    TIERS = ("cuda", "cuda32", "torch", "interp")
 
     def __init__(self, *, use_interpreter: bool = False,
                  tier: Optional[str] = None,
@@ -283,15 +286,21 @@ class PolicyRuntime:
         if bridge_sync not in ("step", "deferred"):
             raise ValueError(f"unknown bridge_sync {bridge_sync!r}; "
                              "use 'step' or 'deferred'")
-        if bridge_shards != 1:
-            raise ValueError(f"bridge_shards={bridge_shards}: the "
-                             "mesh-mode bridge is not ported yet; use 1")
-        if tier == "cuda":
-            require_cuda("PolicyRuntime(tier='cuda')")
+        if bridge_shards < 1:
+            raise ValueError(f"bridge_shards must be >= 1, "
+                             f"got {bridge_shards}")
+        if bridge_shards > 1 and bridge_sync != "deferred":
+            raise ValueError("bridge_shards > 1 (mesh mode) requires "
+                             "bridge_sync='deferred': per-shard deltas "
+                             "merge at flush boundaries, not per call")
+        if tier in ("cuda", "cuda32"):
+            require_cuda(f"PolicyRuntime(tier={tier!r})")
         self.tier = tier
         # in-graph tiers: when kernel-written maps sync back to host maps
         # ("step" = after every call; "deferred" = at flush/T3 boundaries)
         self.bridge_sync = bridge_sync
+        # in-graph tiers: device-resident map shards per bridge (mesh
+        # mode — one per device/rank, reconciled by the shard merge)
         self.bridge_shards = bridge_shards
         self.maps = MapRegistry()
         self._chains: Dict[str, _Chain] = {s: _EMPTY_CHAIN for s in CTX_TYPES}
@@ -871,7 +880,8 @@ class PolicyRuntime:
                 # kernel that does not build rejects the load
                 from .bridge import compile_host
                 fn = compile_host(program, resolved, vinfo, tier=self.tier,
-                                  sync=self.bridge_sync)
+                                  sync=self.bridge_sync,
+                                  n_shards=self.bridge_shards)
         except Exception:
             # ANY tier compile/lowering failure is a load-time rejection:
             # every caller (attach / replace / load_bundle / reload)

@@ -180,6 +180,17 @@ def vec_to_bytes(vec: torch.Tensor) -> bytes:
     return vec.detach().cpu().numpy().astype("<i8").tobytes()
 
 
+def words_to_pairs(t: torch.Tensor) -> torch.Tensor:
+    """``int64[...]`` u64 words -> ``int32[..., 2]`` ``[lo, hi]`` pairs,
+    the same bytes (a view of a contiguous ``t``)."""
+    return t.contiguous().unsqueeze(-1).view(torch.int32)
+
+
+def pairs_to_words(t: torch.Tensor) -> torch.Tensor:
+    """``int32[..., 2]`` pairs -> ``int64[...]`` u64 words (a view)."""
+    return t.contiguous().view(torch.int64).squeeze(-1)
+
+
 # ---------------------------------------------------------------------------
 # unsigned u64 arithmetic on int64 tensors
 # ---------------------------------------------------------------------------
@@ -616,6 +627,20 @@ def run(prog: Program, vinfo, ctx: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One decision of ``prog`` (already checked and verified)."""
     return _Machine(prog, vinfo, ctx, maps).run()
+
+
+def run32(prog: Program, vinfo, ctx2: torch.Tensor,
+          maps2: Dict[str, torch.Tensor]
+          ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decision over pair-form operands (the plain version of the
+    pair-form kernel): ``ctx2`` ``int32[n_fields, 2]``, each map
+    ``int32[*device_shape, 2]``, every u64 as ``[lo, hi]``.  The pairs
+    are viewed as u64 words and run through :func:`run`; returns
+    ``(ret int32[2], ctx2_out, maps2_out)``, inputs untouched."""
+    ret, ctx, maps = run(prog, vinfo, pairs_to_words(ctx2),
+                         {n: pairs_to_words(t) for n, t in maps2.items()})
+    return (words_to_pairs(ret.reshape(1)).reshape(2), words_to_pairs(ctx),
+            {n: words_to_pairs(t) for n, t in maps.items()})
 
 
 def compile_torch(prog: Program, vinfo=None):

@@ -177,10 +177,15 @@ def test_bridge_rejects_unknown_sync_tier_and_shards():
         compile_host(prog, {}, tier="torch", sync="lazy")
     with pytest.raises(BridgeError, match="tier"):
         compile_host(prog, {}, tier="pallas")
-    with pytest.raises(BridgeError, match="mesh-mode"):
+    # mesh mode merges at flush, so it needs deferred sync
+    with pytest.raises(BridgeError, match="deferred"):
         compile_host(prog, {}, tier="torch", n_shards=4)
-    with pytest.raises(ValueError, match="mesh-mode"):
-        PolicyRuntime(tier="torch", bridge_sync="deferred", bridge_shards=2)
+    with pytest.raises(BridgeError, match="n_shards"):
+        compile_host(prog, {}, tier="torch", sync="deferred", n_shards=0)
+    with pytest.raises(ValueError, match="deferred"):
+        PolicyRuntime(tier="torch", bridge_shards=2)
+    with pytest.raises(ValueError, match="bridge_shards"):
+        PolicyRuntime(tier="torch", bridge_sync="deferred", bridge_shards=0)
 
 
 # ---------------------------------------------------------------------------

@@ -116,3 +116,139 @@ def test_cuda_closed_loop_matches_interp(card):
     assert before - builds <= 4
     rt2.invoke("tuner", make_ctx("tuner", msg_size=1 << 20))
     assert rt2.attached("tuner").fn.kernel.launches == 1
+
+
+# ---------------------------------------------------------------------------
+# the pair-form kernel (B2, tier="cuda32") and the in-graph selector
+# ---------------------------------------------------------------------------
+
+PAIR_POLICIES = [p for p in ALL_POLICIES if cudac.supports_pairs(p.program)]
+
+
+@pytest.mark.parametrize("pol", PAIR_POLICIES, ids=lambda p: p.program.name)
+def test_pair_kernel_matches_plain_version_and_vm(card, pol):
+    from repro_torch.core import pair
+    prog = pol.program
+    k = cudac.PolicyKernel(prog).build()
+    host = samples.make_maps(prog, np.random.default_rng(41))
+    dev = {n: pair.map_to_array32(m, card) for n, m in host.items()}
+    plain = {n: t.clone() for n, t in dev.items()}
+    vm = VM(prog.insns, host, subprogs=prog.subprogs)
+    rng = np.random.default_rng(42)
+    for _ in range(6):
+        buf = samples.make_ctx(prog, rng)
+        ctx = pair.ctx_to_vec32(buf, card)
+        ret = torch.zeros(2, dtype=torch.int32, device=card)
+        k.launch32(ctx, ret, dev)
+        p_ret, p_ctx, plain = torchc.run32(prog, k.vinfo,
+                                           pair.ctx_to_vec32(buf, card),
+                                           plain)
+        v_buf = bytearray(buf)
+        v_ret = vm.run(v_buf) & (2**64 - 1)
+        torch.cuda.synchronize()
+        assert pair.ret32_to_int(ret) == pair.ret32_to_int(p_ret) == v_ret
+        assert pair.vec32_to_bytes(ctx) == pair.vec32_to_bytes(p_ctx) \
+            == bytes(v_buf)
+        for n, m in host.items():
+            assert torch.equal(dev[n], plain[n]), n
+            assert dev[n].cpu().numpy().tobytes() == \
+                m.to_device().tobytes(), n
+    assert k.launches32 == 6 and k.launches == 0
+
+
+def test_cuda32_runtime_closed_loop_matches_interp(card):
+    def run(tier):
+        from repro_torch.collectives import CollectiveDispatcher
+        rt = PolicyRuntime(tier=tier)
+        disp = CollectiveDispatcher(runtime=rt)
+        rt.attach(bucket_tuner.program, priority=0)
+        rt.attach(adapt_tuner.program, priority=1)
+        rt.attach(adapt_profiler.program)
+        rt.attach(bucket_profiler.program)
+        rng = np.random.default_rng(19)
+        out = []
+        for _ in range(200):
+            d = disp.decide(int(rng.integers(0, 3)),
+                            1 << int(rng.integers(12, 31)), 8)
+            out.append(d)
+            disp.profiler_feed(d.comm_id, int(rng.integers(2_000, 3_000_000)),
+                               coll=d.coll, msg_size=d.size_bytes)
+        rt.flush_bridges()
+        return out, {n: rt.maps.get(n).to_device().tobytes()
+                     for n in rt.maps.names()}, rt
+
+    got, got_maps, rt = run("cuda32")
+    want, want_maps, _ = run("interp")
+    assert got == want and got_maps == want_maps
+    assert rt.bridge_stats()["host_fallbacks"] == 0
+    launches = [l.fn.kernel.launches32 for s in rt.sections()
+                for l in rt.chain(s)]
+    assert all(n > 0 for n in launches)
+
+
+def test_mesh_bridge_1_vs_8_shards_on_the_card(card):
+    from repro_torch.core.bridge import compile_host
+    from repro_torch.core.maps import MapRegistry
+
+    def bridge(n_shards):
+        prog = bucket_tuner.program
+        reg = MapRegistry()
+        maps = {d.name: reg.create(d.name, d.kind, key_size=d.key_size,
+                                   value_size=d.value_size,
+                                   max_entries=d.max_entries)
+                for d in prog.maps}
+        return compile_host(prog, maps, tier="cuda32", sync="deferred",
+                            n_shards=n_shards), maps["bucket_tune_state"]
+
+    b1, m1 = bridge(1)
+    for _ in range(24):
+        b1(make_ctx("tuner", msg_size=1 << 20, n_ranks=8,
+                    max_channels=32).buf)
+    b1.flush()
+    b8, m8 = bridge(8)
+    for _ in range(3):
+        for s in (5, 2, 7, 0, 3, 6, 1, 4):
+            b8.set_shard(s)
+            b8(make_ctx("tuner", msg_size=1 << 20, n_ranks=8,
+                        max_channels=32).buf)
+    b8.flush()
+    assert np.array_equal(m1.to_device(), m8.to_device())
+    assert b8.stats.shard_merges == 1 and b8.kernel.launches32 == 24
+
+
+@pytest.mark.parametrize("tier", ["cuda32", "cuda"])
+def test_ingraph_selector_on_the_card_matches_torch(card, tier):
+    from repro_torch.collectives.ingraph import (CURSOR_KEY, FAULT_KEY,
+                                                 InGraphSelector)
+    from repro_torch.core.pair import pairs_to_words
+    sel = InGraphSelector(bucket_tuner.program, tier=tier)
+    ref = InGraphSelector(bucket_tuner.program, tier="torch")
+    state, rstate = sel.init_state(), ref.init_state()
+    first = state
+    base = {k: v.clone() for k, v in state.items()}
+    rng = np.random.default_rng(23)
+    for _ in range(100):
+        size = 1 << int(rng.integers(12, 31))
+        lat = torch.tensor(float(rng.choice([900.0, 5e6, 6.1e9])),
+                           dtype=torch.float32)
+        lat_card = lat.to(card)
+        torch.cuda.set_sync_debug_mode("error")     # decide never syncs
+        try:
+            algo, ch, new = sel.decide(state, coll=0, msg_bytes=size, n=8,
+                                       latency_ns=lat_card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ralgo, rch, rstate = ref.decide(rstate, coll=0, msg_bytes=size,
+                                        n=8, latency_ns=lat)
+        assert (int(algo), int(ch)) == (int(ralgo), int(rch))
+        state = new
+    for k, v in state.items():
+        got = v.cpu()
+        if tier == "cuda32" and k not in (FAULT_KEY, CURSOR_KEY):
+            got = pairs_to_words(got)
+        assert torch.equal(got, rstate[k]), k
+    for k in base:                      # decide never wrote the seed
+        assert torch.equal(base[k], first[k]), k
+    launched = sel.kernel.launches32 if tier == "cuda32" \
+        else sel.kernel.launches
+    assert launched == 100

@@ -205,3 +205,30 @@ def test_cpu_tensors_run_the_plain_version_in_place():
     assert k.launches == 0              # no kernel ran
     with pytest.raises(cudac.CudacError, match="contiguous int64"):
         k.launch(ctx.to(torch.int32), ret, arrays)
+
+
+def test_prefixed_programs_share_one_translation_unit(tmp_path):
+    """``build_bundle``'s layout: one helper runtime, then each program's
+    functions under its own symbol prefix (bpf-to-bpf callees included)
+    — the unit builds once and every program still runs bit-exact."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no system C++ compiler")
+    progs = [p.program for p in TELEMETRY_POLICIES]
+    srcs = [cudac.emit_source(p, verify_with_info(p), prefix=f"p{i}_")
+            for i, p in enumerate(progs)]
+    unit = [_SHIM[0], srcs[0].header]
+    for i, s in enumerate(srcs):
+        unit += [s.body, f'extern "C" u64 run{i}(u64 *ctx, u64 **maps) '
+                 f'{{ return p{i}_main(maps, ctx); }}']
+    cpp, so = tmp_path / "bundle.cpp", tmp_path / "bundle.so"
+    cpp.write_text("\n".join(unit))
+    r = subprocess.run([cxx, "-O1", "-shared", "-fPIC", "-w", "-o", str(so),
+                        str(cpp)], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[:4000]
+    lib = ctypes.CDLL(str(so))
+    for i, prog in enumerate(progs):
+        fn = getattr(lib, f"run{i}")
+        fn.restype = ctypes.c_uint64
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        _differential(prog, fn, 11 + i)

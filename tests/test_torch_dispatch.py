@@ -190,12 +190,15 @@ def test_cuda_tier_without_a_device_raises():
         PolicyRuntime()
     with pytest.raises(DeviceError, match="tier='torch'"):
         PolicyRuntime(tier="cuda")
+    with pytest.raises(DeviceError, match="cuda32"):
+        PolicyRuntime(tier="cuda32")
     with pytest.raises(DeviceError):
         CollectiveDispatcher(tier="cuda")
     runtime.reset_global_runtime()
     with pytest.raises(DeviceError):
         dispatch.reset_dispatcher()          # default: the global runtime
-    with pytest.raises(ValueError, match="valid tiers: cuda, torch, interp"):
+    with pytest.raises(ValueError,
+                       match="valid tiers: cuda, cuda32, torch, interp"):
         PolicyRuntime(tier="pallas")
 
 

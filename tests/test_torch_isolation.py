@@ -25,8 +25,12 @@ PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.core.torchc", "repro_torch.core.cudac",
            "repro_torch.core.bridge", "repro_torch.core.runtime",
+           "repro_torch.core.pair", "repro_torch.core.shardmerge",
            "repro_torch.policies", "repro_torch.collectives",
-           "repro_torch.collectives.dispatch"]
+           "repro_torch.collectives.dispatch",
+           "repro_torch.collectives.algorithms",
+           "repro_torch.collectives.ingraph", "repro_torch.launch",
+           "repro_torch.launch.mesh"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():

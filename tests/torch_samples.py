@@ -6,14 +6,19 @@ filled from a numpy generator and ctx buffers drawn per section.  Values
 stay below 2**40 so no tier's ``ema_update`` arithmetic leaves u64
 (the reference lowering wraps, the interpreter does not).
 
+The pair-form goldens (:func:`pair_goldens`) are the hand-written
+programs of ``tests/test_pallas32.py``, for the pair-form kernel.
+
 A helper of the tests and of ``chip_smoke.py`` (which puts ``tests/`` on
 its path), not part of the ``repro_torch`` package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import random
 import struct
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -93,3 +98,238 @@ def make_ctx(prog: Program, rng: np.random.Generator) -> bytearray:
             buf[f.offset:f.offset + 8] = _field_value(name, rng).to_bytes(
                 8, "little")
     return buf
+
+
+# ---------------------------------------------------------------------------
+# pair-form goldens: the programs of tests/test_pallas32.py
+# ---------------------------------------------------------------------------
+#
+# Each is a hand-written program whose u64 values straddle the 32-bit lane
+# split: carries and borrows, widening multiplies, shifts by 0/31/32/33/63,
+# long division, compares in both signed half-planes, 32-bit ALU ops,
+# sub-word stack stores, ctx writeback, an in-loop EMA over a map and a
+# full-row map update.  A golden names its source and its maps; the
+# callers assemble it with either package (``ns`` is ``repro.core`` or
+# ``repro_torch.core``).
+
+PAIR_CTX = dict(msg_size=8 << 20, comm_id=2, n_ranks=8, max_channels=32)
+
+# 32-bit-boundary-heavy constant pool (includes negative-signed encodings)
+BOUNDARY = [0, 1, 3, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 1, 2**32,
+            2**32 + 1, 2**48 + 12345, 2**63 - 1, 2**63, 2**63 + 1,
+            2**64 - 1, -1, -2, -(2**31), -(2**32), -(2**63)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Golden:
+    id: str
+    source: str
+    # (name, kind, value_size, max_entries) per map
+    maps: Tuple[Tuple[str, str, int, int], ...] = ()
+    # (map name, key, u64 value) seeded with update_u64
+    seeds: Tuple[Tuple[str, int, int], ...] = ()
+
+    def program(self, ns) -> Program:
+        decls = tuple(ns.map_decl(n, kind=k, value_size=v, max_entries=e)
+                      for n, k, v, e in self.maps)
+        return ns.assemble(self.source, name=f"g_{self.id}"[:60],
+                           section="tuner", maps=decls)
+
+    def host_maps(self, ns) -> Dict[str, BpfMap]:
+        reg = ns.MapRegistry()
+        out = {n: reg.create(n, k, value_size=v, max_entries=e)
+               for n, k, v, e in self.maps}
+        for n, key, val in self.seeds:
+            out[n].update_u64(key, val)
+        return out
+
+
+def _binop(a: int, b: int, op: str) -> str:
+    return f"""
+        lddw  r6, {a}
+        lddw  r7, {b}
+        {op}  r6, r7
+        mov64 r0, r6
+        exit
+    """
+
+
+_JUMPS = ["jeq", "jne", "jgt", "jge", "jlt", "jle",
+          "jsgt", "jsge", "jslt", "jsle", "jset"]
+_CMP_PAIRS = [(5, 2**63 + 3), (2**63 + 3, 5), (2**63 + 5, 2**63 + 3),
+              (7, 7), (2**32 + 1, 2**32 + 2), (2**32 + 2, 2**32 + 1),
+              (0, 2**64 - 1), (2**31, 2**31 - 1)]
+_SHIFT_VALS = [0x8000000000000001, 0xDEADBEEFCAFEBABE, 1, 2**63, 2**32 + 7]
+_FUZZ_OPS = ["add64", "sub64", "mul64", "and64", "or64", "xor64",
+             "add32", "sub32", "mul32", "xor32"]
+_EMA_MAP = ("p32_ema", "array", 8, 4)
+_EMA_LOOP = """
+        stw    [r10-4], 2
+        lddw   r7, 0xFFFFFFF0
+        mov64  r6, 0
+    loop:
+        jge    r6, 65, out
+        ldmap  r1, p32_ema
+        mov64  r2, r10
+        add64i r2, -4
+        mov64  r3, r7
+        add64  r3, r6
+        mov64  r4, 4
+        call   ema_update
+        add64i r6, 1
+        ja     loop
+    out:
+        mov64  r0, 0
+        exit
+    """
+
+
+def _soup(seed: int) -> str:
+    rng = random.Random(0x32B17 + seed)
+    lines = [f"    lddw r{r}, {rng.choice(BOUNDARY)}" for r in (6, 7, 8)]
+    for _ in range(rng.randint(6, 14)):
+        k = rng.random()
+        if k < 0.5:
+            dst, src = rng.sample([6, 7, 8], 2)
+            lines.append(f"    {rng.choice(_FUZZ_OPS)} r{dst}, r{src}")
+        elif k < 0.8:
+            op = rng.choice(["lsh64i", "rsh64i", "arsh64i"])
+            lines.append(f"    {op} r{rng.choice([6, 7, 8])}, "
+                         f"{rng.choice([0, 1, 31, 32, 33, 63])}")
+        else:
+            op = rng.choice(["jgt", "jslt", "jge", "jne"])
+            lines.append(f"    {op} r{rng.choice([6, 7, 8])}, "
+                         f"r{rng.choice([6, 7, 8])}, skip{len(lines)}")
+            lines.append(f"    add64i r{rng.choice([6, 7, 8])}, "
+                         f"{rng.randint(1, 1 << 20)}")
+            lines.append(f"skip{len(lines) - 2}:")
+    lines += ["    xor64 r6, r7", "    add64 r6, r8",
+              "    mov64 r0, r6", "    exit"]
+    return "\n".join(lines)
+
+
+def pair_goldens() -> List[Golden]:
+    """Every golden program, in the order of tests/test_pallas32.py."""
+    g: List[Golden] = []
+    for a in [0xFFFFFFFF, 2**32 - 2, 2**64 - 1, 2**63 - 1, 2**31 - 1, 0]:
+        for b in [1, 0xFFFFFFFF, 2**63, 2**64 - 1]:
+            g.append(Golden(f"add_{a:x}_{b:x}", _binop(a, b, "add64")))
+    for a in [0, 1, 2**32, 2**32 - 1, 2**63, 5]:
+        for b in [1, 2, 0xFFFFFFFF, 2**63 + 1, 2**64 - 1]:
+            g.append(Golden(f"sub_{a:x}_{b:x}", _binop(a, b, "sub64")))
+    g.append(Golden("neg64_imm_carry", """
+        lddw   r6, 0xFFFFFFFF
+        add64i r6, 1
+        neg64  r6
+        lddw   r7, -1
+        add64  r6, r7
+        mov64  r0, r6
+        exit
+    """))
+    for a, b in [(0xFFFFFFFF, 0xFFFFFFFF), (0x123456789, 0x987654321),
+                 (2**63 + 12345, 3), (2**32, 2**32),
+                 (2**64 - 1, 2**64 - 1),
+                 (0x1234_5678_9ABC_DEF0, 0x0FED_CBA9_8765_4321)]:
+        g.append(Golden(f"mul_{a:x}_{b:x}", _binop(a, b, "mul64")))
+    for op in ["lsh64i", "rsh64i", "arsh64i"]:
+        for s in [0, 1, 31, 32, 33, 63]:
+            for v in _SHIFT_VALS:
+                g.append(Golden(f"{op}_{s}_{v:x}", f"""
+        lddw  r6, {v}
+        {op}  r6, {s}
+        mov64 r0, r6
+        exit
+    """))
+    for op in ["lsh64", "rsh64", "arsh64"]:
+        for s in [0, 31, 32, 33, 63]:
+            g.append(Golden(f"{op}_reg_{s}", f"""
+        lddw  r6, 0x8123456789ABCDEF
+        mov64 r7, {s}
+        {op}  r6, r7
+        mov64 r0, r6
+        exit
+    """))
+    for op in _JUMPS:
+        for a, b in _CMP_PAIRS:
+            g.append(Golden(f"{op}_reg_{a:x}_{b:x}", f"""
+        lddw  r6, {a}
+        lddw  r7, {b}
+        {op}  r6, r7, yes
+        mov64 r0, 0
+        exit
+    yes:
+        mov64 r0, 1
+        exit
+    """))
+    for op in _JUMPS:
+        for imm in [0, 1, -1, 2**31 - 1, -(2**31), 1000]:
+            g.append(Golden(f"{op}_imm_{imm}", f"""
+        lddw  r6, 0xFFFFFFFF80000000
+        {op}  r6, {imm}, yes
+        mov64 r0, 0
+        exit
+    yes:
+        mov64 r0, 1
+        exit
+    """))
+    for op in ["div64", "mod64"]:
+        for a, b in [(2**64 - 1, 3), (2**63, 2**32 + 1), (12345, 997),
+                     (2**64 - 1, 2**64 - 1), (5, 2**63 + 9),
+                     (0xDEADBEEFCAFEBABE, 0x12345)]:
+            g.append(Golden(f"{op}_{a:x}_{b:x}", _binop(a, b, op)))
+    for op, arg in [("add32", "r7"), ("sub32", "r7"), ("mul32", "r7"),
+                    ("xor32", "r7"), ("lsh32i", "5"), ("rsh32i", "7"),
+                    ("arsh32i", "3"), ("mov32", "r7"), ("div32", "r7"),
+                    ("mod32", "r7"), ("neg32", None)]:
+        line = f"{op} r6" if arg is None else f"{op} r6, {arg}"
+        g.append(Golden(f"alu32_{op}", f"""
+        lddw  r6, 0xFFFFFFFF8000000F
+        lddw  r7, 0x10000000B
+        {line}
+        mov64 r0, r6
+        exit
+    """))
+    g.append(Golden("subword_stack_rmw", """
+        lddw   r6, 0x1122334455667788
+        stxdw  [r10-8], r6
+        stb    [r10-3], 0xAB
+        sth    [r10-8], 0xCDEF
+        ldxw   r7, [r10-8]
+        ldxb   r8, [r10-3]
+        ldxdw  r0, [r10-8]
+        add64  r0, r7
+        add64  r0, r8
+        exit
+    """))
+    g.append(Golden("ctx_writeback", """
+        ldxdw  r6, [r1+msg_size]
+        rsh64i r6, 20
+        stxdw  [r1+n_channels], r6
+        lddw   r7, 0xFFFFFFFF00000002
+        stxdw  [r1+algorithm], r7
+        mov64  r0, 0
+        exit
+    """))
+    # the EMA seed crosses the lane split; the second seed is the one the
+    # reference's kernel-vs-body check uses
+    for seed in (0xFFFFFFFFFF, 54321):
+        g.append(Golden(f"inloop_ema_{seed:x}", _EMA_LOOP, (_EMA_MAP,),
+                        (("p32_ema", 2, seed),)))
+    g.append(Golden("map_update_full_row", """
+        stw    [r10-4], 1
+        lddw   r6, 0xAABBCCDDEEFF0011
+        stxdw  [r10-24], r6
+        lddw   r7, 0x1234567890ABCDEF
+        stxdw  [r10-16], r7
+        ldmap  r1, p32_row
+        mov64  r2, r10
+        add64i r2, -4
+        mov64  r3, r10
+        add64i r3, -24
+        mov64  r4, 0
+        call   map_update_elem
+        exit
+    """, (("p32_row", "array", 16, 3),)))
+    for seed in range(8):
+        g.append(Golden(f"soup_{seed}", _soup(seed)))
+    return g
