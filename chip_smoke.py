@@ -59,7 +59,21 @@ Phases (any failure exits non-zero and prints no result line):
    and merged.  Then a 1-rank NCCL group on the card runs the
    dispatcher's entry points on 256 MiB CUDA tensors.  A single H100
    cannot hold a multi-rank NCCL group (NCCL refuses two ranks on one
-   device), so the multi-rank payloads travel over ``gloo``.
+   device), so the multi-rank payloads travel over ``gloo``;
+10. model kernels (B3-B5) — ``fused_rmsnorm``, ``grouped_matmul`` and
+   ``flash_attention`` (built in phase 2, in parallel with the policy
+   kernels): at the CPU tests' shapes, float32 and bfloat16, each CUDA
+   kernel within rtol = atol = 2e-5 / 2e-2 of its plain version on the
+   card, rows without keys exactly 0; then nine full-width bf16 cells
+   from shipped configs (qwen3-1.7b, qwen2.5-32b, olmoe-1b-7b,
+   llava-next-mistral-7b, recurrentgemma-9b, stablelm-12b) through the
+   public ops with the launch counts set to 0 before each and read
+   after (one launch each), each output within 2e-2 of the plain
+   version; each kernel's device time beside its bound (bytes at 3.35
+   TB/s or operations at 989 TFLOP/s), its plain version's time and
+   one PyTorch call's (``F.rms_norm``, ``torch.bmm``, SDPA with the
+   backend its dispatcher picks named); rows without keys
+   exactly 0 at a model's width.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -83,6 +97,10 @@ N_SAMPLES = 8           # ctx samples per policy in the differential phase
 N_TRACE = 200           # decisions in the profiler window
 TIMING_REPS = 300       # launches per device-time measurement
 SPIN_NS = 100_000_000   # the spin kernel's hold: far longer than queueing
+MODEL_SPIN_NS = 20_000_000  # phase 10's hold: 100 launches' queueing at most
+MODEL_REPS = 100        # launches per phase-10 window: a call may launch
+                        # several kernels, and the card's launch queue is
+                        # finite (a full queue blocks the host)
 MAIN_PATH = ("bucket_tuner", "adapt_tuner", "adapt_profiler",
              "bucket_profiler")
 KERNEL_SOURCE = "src/repro_torch/core/csrc/policy_kernel.cuh"
@@ -271,7 +289,8 @@ def timing_lib():
 
     from repro_torch.core import cudac
 
-    lib = cudac.compile_library((cudac.CSRC / "timing.cu").read_text())
+    lib = cudac.compile_library((cudac.CSRC / "timing.cu").read_text(),
+                                "core/csrc/timing.cu")
     lib.bpf_empty_launch.argtypes = [ctypes.c_void_p]
     lib.bpf_spin_launch.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
     lib.bpf_empty_launch.restype = ctypes.c_int
@@ -279,7 +298,8 @@ def timing_lib():
     return lib
 
 
-def device_ms(lib, launch, reps: int = TIMING_REPS) -> float:
+def device_ms(lib, launch, reps: int = TIMING_REPS, warmup: int = 20,
+              spin_ns: int = SPIN_NS) -> float:
     """Device time of one ``launch()`` (one kernel on the current
     stream).  ``reps`` launches are queued behind the spin kernel, so
     they run back to back on the card once it ends, and CUDA events
@@ -288,11 +308,11 @@ def device_ms(lib, launch, reps: int = TIMING_REPS) -> float:
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
-    for _ in range(20):
+    for _ in range(warmup):
         launch()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    check(lib.bpf_spin_launch(stream, SPIN_NS) == 0, "spin kernel launch")
+    check(lib.bpf_spin_launch(stream, spin_ns) == 0, "spin kernel launch")
     start.record()
     for _ in range(reps):
         launch()
@@ -815,6 +835,417 @@ def nccl_one_rank(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the model kernels (B3-B5)
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12   # NVIDIA H100 SXM data sheet (700 W)
+BF16_OPS_PER_S = 989e12     # dense bf16, the same data sheet
+MODEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# full-width cells, bf16 (the configs' dtype), from configs the repo ships
+MODEL_CELLS = (
+    ("fused_rmsnorm", "qwen3-1.7b train_4k, residual",
+     dict(T=4096, D=2048, residual=True)),
+    ("fused_rmsnorm", "qwen3-1.7b train_4k",
+     dict(T=4096, D=2048, residual=False)),
+    ("fused_rmsnorm", "qwen2.5-32b, residual",
+     dict(T=4096, D=5120, residual=True)),
+    ("grouped_matmul", "olmoe-1b-7b, 4096 tokens",
+     dict(E=64, C=640, D=2048, F=1024)),
+    ("flash_attention", "qwen3-1.7b prefill",
+     dict(B=1, H=16, KV=8, S=4096, T=4096, d=128, causal=True, window=0)),
+    ("flash_attention", "qwen3-1.7b decode",
+     dict(B=8, H=16, KV=8, S=1, T=32768, d=128, causal=True, window=0)),
+    ("flash_attention", "llava-next-mistral-7b, window 4096",
+     dict(B=1, H=32, KV=8, S=8192, T=8192, d=128, causal=True,
+          window=4096)),
+    ("flash_attention", "recurrentgemma-9b, window 2048",
+     dict(B=1, H=16, KV=1, S=4096, T=4096, d=256, causal=True,
+          window=2048)),
+    ("flash_attention", "stablelm-12b",
+     dict(B=1, H=32, KV=8, S=4096, T=4096, d=160, causal=True, window=0)),
+)
+MODEL_SOURCES = {
+    "fused_rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm/kernel.py:31"),
+    "grouped_matmul": ("src/repro_torch/kernels/grouped_matmul/csrc/"
+                       "grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul/kernel.py:39"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:79"),
+}
+
+
+def model_kernels() -> dict:
+    """The three model kernels' :class:`CudaKernel` objects, by op name."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    return {"fused_rmsnorm": rms.KERNEL, "grouped_matmul": gmm.KERNEL,
+            "flash_attention": fa.KERNEL}
+
+
+def build_model_kernels() -> float:
+    """Build the three model kernels (one nvcc each, in parallel);
+    the seconds it took."""
+    from repro_torch.core.cudac import build_all
+
+    t0 = time.time()
+    build_all(model_kernels().values())
+    return time.time() - t0
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| over a tensor or a tuple of tensors, in f32."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"kernel {a.dtype}{list(a.shape)} against plain "
+          f"{b.dtype}{list(b.shape)}")
+    return float((a.float() - b.float()).abs().amax())
+
+
+def kernel_matches_plain(name: str, dtype: str, got, want) -> float:
+    """Fail unless ``got`` is allclose to ``want`` at the reference's
+    tolerance for ``dtype``; the largest difference."""
+    import torch
+
+    tol = MODEL_TOL[dtype]
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{name}: non-finite output")
+        check(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol),
+              f"{name}: kernel disagrees with its plain version (max abs "
+              f"err {max_err(a, b)}, tolerance {tol})")
+    return max_err(got, want)
+
+
+def model_test_shapes(dev) -> dict:
+    """Each kernel against its plain version at the CPU tests' shapes,
+    float32 and bfloat16 (``tests/torch_samples.py`` inputs), including
+    query rows that see no key; the largest error per kernel."""
+    import torch
+
+    import torch_samples as samples
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
+    from repro_torch.kernels.rmsnorm import kernel as rms
+
+    worst = {"fused_rmsnorm": 0.0, "grouped_matmul": 0.0,
+             "flash_attention": 0.0}
+    for dtype, tdt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        on = lambda a: torch.from_numpy(a).to(dev).to(tdt)   # noqa: E731
+        for res in (False, True):
+            a = samples.kernel_inputs("rmsnorm", 0, T=256, D=512,
+                                      with_residual=res)
+            x, r = on(a["x"]), on(a["residual"]) if res else None
+            s = torch.from_numpy(a["scale"]).to(dev)
+            e = kernel_matches_plain(
+                f"fused_rmsnorm {dtype}", dtype,
+                rms.fused_rmsnorm_cuda(x, s, r, bt=128),
+                rms.fused_rmsnorm_plain(x, s, r, bt=128))
+            worst["fused_rmsnorm"] = max(worst["fused_rmsnorm"], e)
+        a = samples.kernel_inputs("grouped_matmul", 0, E=4, C=128, D=256,
+                                  F=128)
+        x, w = on(a["x"]), on(a["w"])
+        e = kernel_matches_plain(
+            f"grouped_matmul {dtype}", dtype,
+            gmm.grouped_matmul_cuda(x, w, bc=64, bf=64, bd=128),
+            gmm.grouped_matmul_plain(x, w, bc=64, bf=64, bd=128))
+        worst["grouped_matmul"] = max(worst["grouped_matmul"], e)
+        for S, T, d, kw in ((128, 256, 128, dict(bq=64, bk=128)),
+                            (256, 256, 64, dict(bq=128, bk=64, window=32)),
+                            (128, 64, 32, dict(bq=64, bk=64))):
+            a = samples.kernel_inputs("flash_attention", 0,
+                                      q_shape=(3, S, d), kv_shape=(3, T, d))
+            q, k, v = on(a["q"]), on(a["k"]), on(a["v"])
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            e = kernel_matches_plain(
+                f"flash_attention {dtype} S={S} T={T} d={d}", dtype, got,
+                fa.flash_attention_plain(q, k, v, **kw))
+            worst["flash_attention"] = max(worst["flash_attention"], e)
+            if S > T:
+                check(bool((got[:, :S - T] == 0).all()),
+                      "flash_attention: a row without keys is not 0")
+    torch.cuda.synchronize()
+    return worst
+
+
+def cell_inputs(kind: str, p: dict, seed: int, dev) -> dict:
+    """Seeded bf16 inputs of one full-width cell, made on the card."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev,   # noqa: E731
+                                 dtype=bf)
+    if kind == "fused_rmsnorm":
+        out = {"x": rnd(1, p["T"], p["D"]),
+               "scale": torch.rand(p["D"], generator=g, device=dev) + 0.5}
+        if p["residual"]:
+            out["residual"] = rnd(1, p["T"], p["D"])
+        return out
+    if kind == "grouped_matmul":
+        return {"x": rnd(p["E"], p["C"], p["D"]) * 0.1,
+                "w": rnd(p["E"], p["D"], p["F"]) * 0.1}
+    return {"q": rnd(p["B"], p["H"], p["S"], p["d"]),
+            "k": rnd(p["B"], p["KV"], p["T"], p["d"]),
+            "v": rnd(p["B"], p["KV"], p["T"], p["d"])}
+
+
+def run_op(kind: str, inp: dict, p: dict, backend: str = "cuda"):
+    """One call of the public op, as a user makes it."""
+    from repro_torch import kernels as K
+
+    if kind == "fused_rmsnorm":
+        return K.fused_rmsnorm(inp["x"], inp["scale"], inp.get("residual"),
+                               backend=backend)
+    if kind == "grouped_matmul":
+        return K.grouped_matmul(inp["x"], inp["w"], backend=backend)
+    return K.flash_attention(inp["q"], inp["k"], inp["v"],
+                             causal=p["causal"], window=p["window"],
+                             backend=backend)
+
+
+def kernel_call(kind: str, inp: dict, p: dict):
+    """The kernel's own wrapper on the op's prepared operands (rows
+    flattened, kv heads expanded), for timing; with its inputs."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
+    from repro_torch.kernels.rmsnorm import kernel as rms
+
+    if kind == "fused_rmsnorm":
+        x = inp["x"].reshape(-1, p["D"])
+        r = inp["residual"].reshape(-1, p["D"]) if p["residual"] else None
+        ins = [x, inp["scale"]] + ([r] if r is not None else [])
+        return (lambda: rms.fused_rmsnorm_cuda(x, inp["scale"], r)), ins
+    if kind == "grouped_matmul":
+        return (lambda: gmm.grouped_matmul_cuda(inp["x"], inp["w"])), \
+            [inp["x"], inp["w"]]
+    rep = p["H"] // p["KV"]
+    BH = p["B"] * p["H"]
+    q = inp["q"].reshape(BH, p["S"], p["d"])
+    k, v = (torch.repeat_interleave(inp[n], rep, dim=1).reshape(
+        BH, p["T"], p["d"]) for n in "kv")
+    return (lambda: fa.flash_attention_cuda(
+        q, k, v, causal=p["causal"], window=p["window"])), [q, k, v]
+
+
+def window_mask(p: dict, dev):
+    """The (S, T) boolean mask of _attn_kernel: queries at the end."""
+    import torch
+
+    q_pos = torch.arange(p["S"], device=dev)[:, None] + (p["T"] - p["S"])
+    k_pos = torch.arange(p["T"], device=dev)[None, :]
+    mask = torch.ones((p["S"], p["T"]), dtype=torch.bool, device=dev)
+    if p["causal"]:
+        mask &= k_pos <= q_pos
+    if p["window"] > 0:
+        mask &= k_pos > q_pos - p["window"]
+    return mask
+
+
+def library_call(kind: str, ins: list, p: dict):
+    """One PyTorch call computing the kernel's function on the kernel's
+    operands (timed for the table, used nowhere in the port), and its
+    description."""
+    import torch
+    import torch.nn.functional as F
+
+    if kind == "fused_rmsnorm":
+        x, scale = ins[0], ins[1].to(ins[0].dtype)
+        if p["residual"]:
+            r = ins[2]
+            return (lambda: F.rms_norm(x + r, (p["D"],), scale, 1e-6)), \
+                "F.rms_norm(x + r)"
+        return (lambda: F.rms_norm(x, (p["D"],), scale, 1e-6)), \
+            "F.rms_norm"
+    if kind == "grouped_matmul":
+        return (lambda: torch.bmm(ins[0], ins[1])), "torch.bmm"
+    from torch.nn.attention import SDPBackend
+
+    q, k, v = (t.reshape(p["B"], p["H"], -1, p["d"]) for t in ins)
+    if p["window"] == 0 and p["S"] == p["T"]:
+        kw, what = {"is_causal": True}, "is_causal"
+    elif p["window"] == 0 and p["S"] == 1:
+        kw, what = {}, "no mask"
+    else:
+        kw, what = {"attn_mask": window_mask(p, q.device)}, "bool mask"
+    # the backend SDPA's own dispatcher picks for these arguments
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    return (lambda: F.scaled_dot_product_attention(q, k, v, **kw)), \
+        f"sdpa({what}) [{backend}]"
+
+
+def attention_pairs(p: dict) -> int:
+    """Query-key pairs the masks leave open, per head."""
+    import numpy as np
+
+    q_pos = np.arange(p["S"], dtype=np.int64) + (p["T"] - p["S"])
+    hi = np.minimum(q_pos, p["T"] - 1) if p["causal"] \
+        else np.full_like(q_pos, p["T"] - 1)
+    lo = np.maximum(q_pos - p["window"] + 1, 0) if p["window"] > 0 \
+        else np.zeros_like(q_pos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def model_bound(kind: str, p: dict, ins: list, out) -> dict:
+    """The least time the card could take: the kernel's inputs read
+    once and outputs written once at the HBM rate, against its
+    operations at the dense bf16 rate; the larger bounds it."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in list(ins)
+                 + list(outs))
+    if kind == "fused_rmsnorm":
+        ops = p["T"] * p["D"] * (5 if p["residual"] else 4)
+    elif kind == "grouped_matmul":
+        ops = 2 * p["E"] * p["C"] * p["D"] * p["F"]
+    else:
+        ops = 4 * p["d"] * attention_pairs(p) * p["B"] * p["H"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timed_ms(lib, launch) -> tuple:
+    """Device time of one ``launch()`` at full width: windows of up to
+    ``MODEL_REPS`` launches back to back behind the spin kernel (as many
+    as make about a second of device time and as the host queues in
+    under half the spin), and as many windows as make about a second in
+    all (at most 20); the median window's time per launch, the launches
+    per window and the windows.  A call that waits for the device
+    (it does not return while the spin holds the stream) cannot be
+    queued: it is timed by events around its launches (windows 0)."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    launch()
+    torch.cuda.synchronize()
+    check(lib.bpf_spin_launch(stream, MODEL_SPIN_NS) == 0,
+          "spin kernel launch")
+    t0 = time.perf_counter()
+    launch()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    waits = host_ms >= MODEL_SPIN_NS / 1e6 / 2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    end.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    if waits:
+        reps = int(max(3, min(MODEL_REPS, 1000.0 / once)))
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, reps, 0
+    queue_ms = MODEL_SPIN_NS / 1e6 / 2
+    reps = int(max(3, min(MODEL_REPS, 1000.0 / once, queue_ms / host_ms)))
+    windows = int(min(20, max(1, round(1000.0 / (reps * once)))))
+    ms = [device_ms(lib, launch, reps=reps, warmup=1, spin_ns=MODEL_SPIN_NS)
+          for _ in range(windows)]
+    return pct(ms, 50), reps, windows
+
+
+def plain_ms(call, n: int = 3) -> float:
+    """Median host time of a synchronised run of the plain version."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter_ns() - t0)
+    return pct(times, 50) / 1e6
+
+
+def model_main_path(dev, lib) -> tuple:
+    """Every full-width cell through the public op (``backend="cuda"``)
+    with the launch counts set to 0 just before it and read just after;
+    each output held against the plain version (``backend="torch"``) on
+    the same inputs; then each kernel timed beside its bound, its plain
+    version and the library call.  The kernels-line rows and a log."""
+    import torch
+
+    kernels = model_kernels()
+    rows, cells = [], []
+    for i, (kind, cell, p) in enumerate(MODEL_CELLS):
+        inp = cell_inputs(kind, p, seed=1000 + i, dev=dev)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        out = run_op(kind, inp, p)
+        counts = {n: k.launches for n, k in kernels.items()}
+        check(counts[kind] == 1 and sum(counts.values()) == 1,
+              f"{kind} [{cell}]: launches {counts} on one op call")
+        err = kernel_matches_plain(f"{kind} [{cell}]", "bfloat16", out,
+                                   run_op(kind, inp, p, backend="torch"))
+        launch, ins = kernel_call(kind, inp, p)
+        ms, reps, windows = timed_ms(lib, launch)
+        lib_call, lib_name = library_call(kind, ins, p)
+        k_out = launch()
+        k_out = k_out[0] if isinstance(k_out, tuple) else k_out
+        lib_err = max_err(lib_call().reshape(k_out.shape), k_out)
+        check(lib_err < 0.1, f"{kind} [{cell}]: the library call "
+              f"{lib_name} computes another function (err {lib_err})")
+        lib_ms, _, lib_windows = timed_ms(lib, lib_call)
+        p_ms = plain_ms(lambda: run_op(kind, inp, p, backend="torch"))
+        bound = model_bound(kind, p, ins, out)
+        rows.append({"name": f"{kind}[{cell}]", "route": "cuda",
+                     "source": MODEL_SOURCES[kind][0],
+                     "replaces": MODEL_SOURCES[kind][1],
+                     "launches": counts[kind], "max_abs_err": err,
+                     "ms": ms, "plain_ms": p_ms,
+                     "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"], "library_ms": lib_ms})
+        cells.append({"kind": kind, "cell": cell, "shape": p, "reps": reps,
+                      "windows": windows,
+                      "library": lib_name,
+                      "library_waits_for_device": lib_windows == 0,
+                      "library_err": lib_err, **bound})
+        log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}, max "
+            f"abs err {err:.3g} against the plain version; kernel "
+            f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}, {100 * bound['bound_ms'] / ms:.1f}%), "
+            f"plain {p_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms")
+        del inp, out, ins, launch, lib_call
+        torch.cuda.empty_cache()
+    return rows, cells
+
+
+def zero_rows_at_width(dev) -> int:
+    """Query rows that see no key (S > T under causal) are exactly 0 on
+    the card at a model's width; the number of such rows checked."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    p = dict(B=1, H=16, KV=8, S=4096, T=1024, d=128)
+    inp = cell_inputs("flash_attention", dict(p, causal=True, window=0),
+                      seed=999, dev=dev)
+    out = K.flash_attention(inp["q"], inp["k"], inp["v"], causal=True)
+    torch.cuda.synchronize()
+    rows = out[:, :, :p["S"] - p["T"]]
+    check(bool((rows == 0).all()), "flash_attention: rows without keys "
+          "are not 0 at width")
+    check(bool((out[:, :, p["S"] - p["T"]:].abs().amax(dim=-1) > 0).all()),
+          "flash_attention: a row with keys is 0")
+    return p["B"] * p["H"] * (p["S"] - p["T"])
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -841,13 +1272,20 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     # ---- 2. build ----------------------------------------------------------
+    # the model kernels (phase 10) build beside the policy kernels
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    kernels = cudac.build_all(cudac.PolicyKernel(p.program)
-                              for p in ALL_POLICIES)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        model_build = pool.submit(build_model_kernels)
+        kernels = cudac.build_all(cudac.PolicyKernel(p.program)
+                                  for p in ALL_POLICIES)
+        model_build_s = model_build.result()
     build_s = time.time() - t0
     stats = cudac.cache_stats()
-    log(f"[build] {len(kernels)} policy kernels in {build_s:.1f} s "
-        f"(nvcc runs {stats['builds']}, cache hits {stats['cache_hits']})")
+    log(f"[build] {len(kernels)} policy kernels and 3 model kernels in "
+        f"{build_s:.1f} s (nvcc runs {stats['builds']}, cache hits "
+        f"{stats['cache_hits']}); the model kernels' build took "
+        f"{model_build_s:.1f} s of it")
 
     # ---- 3. kernel vs plain version vs interpreter -------------------------
     diff = {}
@@ -1069,6 +1507,26 @@ def main() -> int:
         f"rank states merged (count delta {ranks[0]['count_delta']}); "
         f"1-rank NCCL on the card: {nccl['ran']}")
 
+    # ---- 10. the model kernels (B3-B5) -------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    small = model_test_shapes(dev)
+    log(f"[model build] 3 model kernels (rmsnorm.cu, grouped_matmul.cu, "
+        f"flash_attention.cu) built by nvcc in {model_build_s:.1f} s, in "
+        f"parallel with the policy kernels; at the test shapes, float32 "
+        f"and bfloat16, each kernel within tolerance of its plain version "
+        f"on the card: " + ", ".join(f"{k} max abs err {v:.3g}"
+                                     for k, v in small.items()))
+    model_rows, model_cells = model_main_path(dev, lib)
+    table.extend(model_rows)
+    zero_rows = zero_rows_at_width(dev)
+    model_s = time.time() - t0
+    log(f"[model] {len(model_rows)} full-width cells through the ops, each "
+        f"launching its kernel once and within 2e-2 of its plain version; "
+        f"{zero_rows} query rows without keys exactly 0 ({model_s:.1f} s); "
+        f"{smi}")
+
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
@@ -1084,6 +1542,11 @@ def main() -> int:
               "ingraph_trace": ig_trace,
               "collectives": {"seconds": coll_s, "ranks": ranks,
                               "nccl": nccl},
+              "model_kernels": {"build_s": model_build_s,
+                                "test_shapes_max_abs_err": small,
+                                "cells": model_cells,
+                                "zero_rows": zero_rows,
+                                "seconds": model_s},
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -106,8 +106,8 @@ _ALU_SYM = {"add": "+", "sub": "-", "mul": "*", "and": "&", "or": "|",
 
 
 class CudacError(Exception):
-    """The policy cannot lower to the cuda tier, its kernel failed to
-    build, or a launch failed."""
+    """A policy cannot lower to the cuda tier, a kernel failed to build,
+    or a launch failed."""
 
 
 def _u64c(x: int) -> str:
@@ -560,9 +560,9 @@ def cache_stats() -> Dict[str, int]:
         return dict(_STATS)
 
 
-def compile_library(src: str) -> ctypes.CDLL:
+def compile_library(src: str, name: str) -> ctypes.CDLL:
     """Build ``src`` with nvcc into ``BUILD_DIR`` (once per source hash)
-    and load it."""
+    and load it; ``name`` says what the source is, for the errors."""
     key = hashlib.sha256(
         (" ".join(NVCC_FLAGS) + "\n" + src).encode()).hexdigest()[:24]
     with _LOCK:
@@ -582,8 +582,8 @@ def compile_library(src: str) -> ctypes.CDLL:
         if not so.exists():
             nvcc = nvcc_path()
             if nvcc is None:
-                raise CudacError("cannot build the policy kernel: no nvcc "
-                                 "on PATH or under /usr/local/cuda")
+                raise CudacError(f"cannot build {name}: no nvcc on PATH or "
+                                 "under /usr/local/cuda")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # source and library under names of this process and thread,
             # so another process building the same key never reads a
@@ -596,12 +596,12 @@ def compile_library(src: str) -> ctypes.CDLL:
                                     str(cu)], capture_output=True,
                                    timeout=600)
             except (OSError, subprocess.TimeoutExpired) as e:
-                raise CudacError(f"nvcc did not run: {e}") from e
+                raise CudacError(f"nvcc did not run on {name}: {e}") from e
             finally:
                 cu.unlink(missing_ok=True)
             if r.returncode != 0:
                 raise CudacError(
-                    f"nvcc failed ({r.returncode}) on source {key}: "
+                    f"nvcc failed ({r.returncode}) on {name} (source {key}): "
                     f"{r.stderr.decode(errors='replace')[:4000]}")
             os.replace(tmp, so)
             built = True
@@ -701,7 +701,8 @@ class PolicyKernel:
 
     def build(self) -> "PolicyKernel":
         if self._fn is None:
-            self._bind(compile_library(self.source.full))
+            self._bind(compile_library(self.source.full,
+                                       f"policy kernel '{self.name}'"))
         return self
 
     def _check(self, want, dtype, align: int) -> None:
@@ -774,11 +775,13 @@ class PolicyKernel:
         self.launches32 += 1
 
 
-def build_all(kernels: Iterable[PolicyKernel]) -> List[PolicyKernel]:
-    """Build every kernel, one nvcc process per source, in parallel."""
+def build_all(kernels: Iterable) -> List:
+    """Build every kernel (anything with a ``build()`` that returns it:
+    policy kernels, the model kernels), one nvcc process per source, in
+    parallel."""
     kernels = list(kernels)
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
-        return list(ex.map(PolicyKernel.build, kernels))
+        return list(ex.map(lambda k: k.build(), kernels))
 
 
 def build_bundle(kernels: Iterable[PolicyKernel], per_library: int = 48
@@ -799,7 +802,8 @@ def build_bundle(kernels: Iterable[PolicyKernel], per_library: int = 48
         src = "\n".join([group[0].source.header]
                          + [k.source.body + "\n" + k.source.launcher
                             for k in group])
-        lib = compile_library(src)
+        lib = compile_library(src, f"policy kernel bundle "
+                              f"'{group[0].name}' .. '{group[-1].name}'")
         for k in group:
             k._bind(lib)
 

@@ -1,0 +1,21 @@
+// CPU stand-in for cuda_bf16.h: bfloat16 as its 16 bits, converted with
+// round to nearest even as the card's __float2bfloat16_rn does.
+#pragma once
+#include <cstdint>
+#include <cstring>
+
+struct __nv_bfloat16 {
+    uint16_t x;
+};
+inline float __bfloat162float(__nv_bfloat16 v) {
+    const uint32_t b = (uint32_t)v.x << 16;
+    float f;
+    std::memcpy(&f, &b, 4);
+    return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+    uint32_t b;
+    std::memcpy(&b, &f, 4);
+    b += 0x7FFFu + ((b >> 16) & 1u);
+    return {(uint16_t)(b >> 16)};
+}

@@ -30,7 +30,17 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.collectives.dispatch",
            "repro_torch.collectives.algorithms",
            "repro_torch.collectives.ingraph", "repro_torch.launch",
-           "repro_torch.launch.mesh"]
+           "repro_torch.launch.mesh", "repro_torch.kernels",
+           "repro_torch.kernels._build",
+           "repro_torch.kernels.rmsnorm.ref",
+           "repro_torch.kernels.rmsnorm.kernel",
+           "repro_torch.kernels.rmsnorm.ops",
+           "repro_torch.kernels.grouped_matmul.ref",
+           "repro_torch.kernels.grouped_matmul.kernel",
+           "repro_torch.kernels.grouped_matmul.ops",
+           "repro_torch.kernels.flash_attention.ref",
+           "repro_torch.kernels.flash_attention.kernel",
+           "repro_torch.kernels.flash_attention.ops"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():

@@ -333,3 +333,43 @@ def pair_goldens() -> List[Golden]:
     for seed in range(8):
         g.append(Golden(f"soup_{seed}", _soup(seed)))
     return g
+
+
+# ---------------------------------------------------------------------------
+# model-kernel inputs (B3-B5)
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(kernel: str, seed: int, **shape) -> Dict[str, np.ndarray]:
+    """Seeded float32 inputs of one model kernel, drawn from
+    ``np.random.RandomState(seed)`` in the order ``tests/test_kernels.py``
+    draws them, so both frameworks get the same arrays.
+
+    ``rmsnorm``: ``T, D, with_residual`` -> x, scale (and residual);
+    ``grouped_matmul``: ``E, C, D, F`` -> x, w (scaled by 0.1);
+    ``flash_attention``: ``q_shape``, ``kv_shape`` -> q, k, v."""
+    rng = np.random.RandomState(seed)
+    if kernel == "rmsnorm":
+        T, D = shape["T"], shape["D"]
+        out = {"x": rng.randn(T, D), "scale": rng.rand(D) + 0.5}
+        if shape.get("with_residual"):
+            out["residual"] = rng.randn(T, D)
+    elif kernel == "grouped_matmul":
+        E, C, D, F = shape["E"], shape["C"], shape["D"], shape["F"]
+        out = {"x": rng.randn(E, C, D) * 0.1, "w": rng.randn(E, D, F) * 0.1}
+    elif kernel == "flash_attention":
+        out = {"q": rng.randn(*shape["q_shape"]),
+               "k": rng.randn(*shape["kv_shape"]),
+               "v": rng.randn(*shape["kv_shape"])}
+    else:
+        raise ValueError(f"no inputs for kernel {kernel!r}")
+    return {n: a.astype(np.float32) for n, a in out.items()}
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """Float32 ``a`` rounded to bfloat16 (round to nearest, ties to even)
+    and widened back: the values ``torch``'s and ``jax``'s bf16 casts of
+    a float32 array both hold."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    bits = bits.astype(np.uint64)
+    rounded = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return rounded.astype(np.uint32).view(np.float32)
