@@ -10,8 +10,8 @@ of one head and loops over the kv tiles the masks leave open, so
 the ``min`` with the shape).  Head dims up to 256.
 
 * :func:`flash_attention_cuda` — checks, then one launch on the current
-  stream (counted in ``KERNEL.launches``); on CPU tensors it runs the
-  plain version.
+  stream (counted in ``KERNEL.launches``); raises ``DeviceError`` on
+  tensors that are not on the current CUDA device.
 * :func:`flash_attention_plain` — ``_attn_kernel``'s arithmetic over
   ``bk``-wide kv tiles in order, every query row at once: the same
   query offset, masks, ``NEG_INF``, ``alpha`` guard and ``max(l,
@@ -94,9 +94,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     Returns (BH, S, d) in ``q.dtype``."""
     BH, S, T, d = _shapes(q, k, v)
     _check_blocks(S, T, bq, bk)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, bq=bq, bk=bk)
     on_card("flash_attention", q, k, v)
     code = kernel_dtype("flash_attention", q.dtype)
     if d > MAX_HEAD_DIM:

@@ -10,8 +10,8 @@ on the CUDA cores, bfloat16 on the tensor cores through WMMA), so
 D % bd == 0`` after taking the ``min`` with the shape).
 
 * :func:`grouped_matmul_cuda` — checks, then one launch on the current
-  stream (counted in ``KERNEL.launches``); on CPU tensors it runs the
-  plain version.
+  stream (counted in ``KERNEL.launches``); raises ``DeviceError`` on
+  tensors that are not on the current CUDA device.
 * :func:`grouped_matmul_plain` — the Pallas kernel's arithmetic: the f32
   sum over ``bd``-wide slices of D in order, cast once.
 """
@@ -60,8 +60,6 @@ def grouped_matmul_cuda(x, w, *, bc: int = 128, bf: int = 128,
     """x: (E, C, D); w: (E, D, F) -> (E, C, F) in ``x.dtype``."""
     E, C, D, F = _shapes(x, w)
     _check_tiles(C, D, F, bc, bf, bd)
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return grouped_matmul_plain(x, w, bc=bc, bf=bf, bd=bd)
     on_card("grouped_matmul", x, w)
     code = kernel_dtype("grouped_matmul", x.dtype)
     check_operand("x", x, (E, C, D), x.dtype)

@@ -7,8 +7,8 @@ the row's f32 sum in shared memory, so ``bt`` only shapes the contract
 (``T % bt == 0``), as it does for the reference's callers.
 
 * :func:`fused_rmsnorm_cuda` — checks, then one launch on the current
-  stream (counted in ``KERNEL.launches``); on CPU tensors it runs the
-  plain version.
+  stream (counted in ``KERNEL.launches``); raises ``DeviceError`` on
+  tensors that are not on the current CUDA device.
 * :func:`fused_rmsnorm_plain` — the Pallas kernel's arithmetic step for
   step in torch: the residual added in f32, ``y`` cast to the output
   dtype before the multiply by ``scale`` cast to it, the residual stream
@@ -52,8 +52,6 @@ def fused_rmsnorm_cuda(x, scale, residual=None, *, eps: float = 1e-6,
     T, D = x.shape
     _check_rows(T, bt)
     operands = [x, scale] + ([residual] if residual is not None else [])
-    if all(t.device.type == "cpu" for t in operands):
-        return fused_rmsnorm_plain(x, scale, residual, eps=eps, bt=bt)
     on_card("fused_rmsnorm", *operands)
     code = kernel_dtype("fused_rmsnorm", x.dtype)
     check_operand("x", x, (T, D), x.dtype)

@@ -99,8 +99,6 @@ def _flash_pairs(a, dtype, *, causal=True, window=0, bq=128, bk=128):
     flat = lambda t, n: t.reshape(B * H, n, d)                # noqa: E731
     got = fa.flash_attention_plain(flat(tq, S), flat(tkx, T), flat(tvx, T),
                                    bq=bq, bk=bk, **kw)
-    assert torch.equal(fa.flash_attention_cuda(
-        flat(tq, S), flat(tkx, T), flat(tvx, T), bq=bq, bk=bk, **kw), got)
     pairs = [
         ("kernel", got.reshape(B, H, S, d),
          flash_attention_tpu(flat(jq, S), flat(jkx, T), flat(jvx, T), bq=bq,
@@ -227,8 +225,6 @@ def _rms_pairs(a, dtype, bt, eps=1e-6):
     jr = _j(a["residual"], dtype) if "residual" in a else None
     tr = _t(a["residual"], dtype) if "residual" in a else None
     got = rms.fused_rmsnorm_plain(tx, ts, tr, eps=eps, bt=bt)
-    for g, c in zip(got, rms.fused_rmsnorm_cuda(tx, ts, tr, eps=eps, bt=bt)):
-        assert torch.equal(g, c)
     outs = {
         "kernel": (got, fused_rmsnorm_tpu(jx, js, jr, eps=eps, bt=bt,
                                           interpret=True)),
@@ -286,7 +282,6 @@ def _gmm_pairs(a, dtype, **blocks):
     jx, jw = _j(a["x"], dtype), _j(a["w"], dtype)
     tx, tw = _t(a["x"], dtype), _t(a["w"], dtype)
     got = gmm.grouped_matmul_plain(tx, tw, **blocks)
-    assert torch.equal(gmm.grouped_matmul_cuda(tx, tw, **blocks), got)
     pairs = [
         ("kernel", got, grouped_matmul_tpu(jx, jw, interpret=True, **blocks)),
         ("oracle", gmm_ref.grouped_matmul_ref(tx, tw), j_gmm_ref(jx, jw)),
@@ -375,6 +370,16 @@ def _op_calls(backend=None):
             "flash_attention": lambda: K.flash_attention(q, q, q, **kw)}
 
 
+def _wrapper_calls():
+    x = torch.zeros(64, 32)
+    q = torch.zeros(2, 64, 32)
+    return {"fused_rmsnorm": lambda: rms.fused_rmsnorm_cuda(
+                x, torch.ones(32), x),
+            "grouped_matmul": lambda: gmm.grouped_matmul_cuda(
+                torch.zeros(2, 64, 32), torch.zeros(2, 32, 64)),
+            "flash_attention": lambda: fa.flash_attention_cuda(q, q, q)}
+
+
 @pytest.mark.parametrize("op", ["fused_rmsnorm", "grouped_matmul",
                                 "flash_attention"])
 def test_cuda_backend_is_default_and_raises_without_a_card(op):
@@ -383,6 +388,8 @@ def test_cuda_backend_is_default_and_raises_without_a_card(op):
     for backend in (None, "cuda"):
         with pytest.raises(DeviceError, match="CUDA device"):
             _op_calls(backend)[op]()
+    with pytest.raises(DeviceError, match="CUDA device"):
+        _wrapper_calls()[op]()
 
 
 @pytest.mark.parametrize("op", ["fused_rmsnorm", "grouped_matmul",
@@ -401,6 +408,8 @@ def test_cuda_backend_refuses_cpu_tensors(op, monkeypatch):
     monkeypatch.setattr(*plain, no_plain)
     with pytest.raises(DeviceError, match="CUDA tensors"):
         _op_calls("cuda")[op]()
+    with pytest.raises(DeviceError, match="CUDA tensors"):
+        _wrapper_calls()[op]()
 
 
 def test_unknown_backend_raises():

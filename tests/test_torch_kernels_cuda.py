@@ -191,7 +191,11 @@ def test_cuda_backend_raises_on_cpu_tensors(card):
                  lambda: K.grouped_matmul(torch.zeros(2, 64, 32),
                                           torch.zeros(2, 32, 64)),
                  lambda: K.flash_attention(q, q, q),
-                 lambda: K.flash_attention(q.to(card), q, q.to(card))):
+                 lambda: K.flash_attention(q.to(card), q, q.to(card)),
+                 lambda: rms.fused_rmsnorm_cuda(x, torch.ones(32)),
+                 lambda: gmm.grouped_matmul_cuda(torch.zeros(2, 64, 32),
+                                                 torch.zeros(2, 32, 64)),
+                 lambda: fa.flash_attention_cuda(q[0], q[0], q[0])):
         with pytest.raises(DeviceError):
             call()
     assert before == [k.launches for k in (rms.KERNEL, gmm.KERNEL,
