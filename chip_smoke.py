@@ -991,16 +991,21 @@ def model_test_shapes(dev) -> dict:
             gmm.grouped_matmul_cuda(x, w, bc=64, bf=64, bd=128),
             gmm.grouped_matmul_plain(x, w, bc=64, bf=64, bd=128))
         worst["grouped_matmul"] = max(worst["grouped_matmul"], e)
-        for S, T, d, kw in ((128, 256, 128, dict(bq=64, bk=128)),
-                            (256, 256, 64, dict(bq=128, bk=64, window=32)),
-                            (128, 64, 32, dict(bq=64, bk=64))):
+        # the last: kv heads indexed in the kernel, split-KV in bf16
+        for BH, g, S, T, d, kw in (
+                (3, 1, 128, 256, 128, dict(bq=64, bk=128)),
+                (3, 1, 256, 256, 64, dict(bq=128, bk=64, window=32)),
+                (3, 1, 128, 64, 32, dict(bq=64, bk=64)),
+                (4, 2, 1, 4096, 128, dict(bq=1, bk=4096))):
             a = samples.kernel_inputs("flash_attention", 0,
-                                      q_shape=(3, S, d), kv_shape=(3, T, d))
+                                      q_shape=(BH, S, d),
+                                      kv_shape=(BH // g, T, d))
             q, k, v = on(a["q"]), on(a["k"]), on(a["v"])
-            got = fa.flash_attention_cuda(q, k, v, **kw)
+            got = fa.flash_attention_cuda(q, k, v, group=g, **kw)
+            kx, vx = (t.repeat_interleave(g, dim=0) for t in (k, v))
             e = kernel_matches_plain(
-                f"flash_attention {dtype} S={S} T={T} d={d}", dtype, got,
-                fa.flash_attention_plain(q, k, v, **kw))
+                f"flash_attention {dtype} S={S} T={T} d={d} group={g}",
+                dtype, got, fa.flash_attention_plain(q, kx, vx, **kw))
             worst["flash_attention"] = max(worst["flash_attention"], e)
             if S > T:
                 check(bool((got[:, :S - T] == 0).all()),
@@ -1047,10 +1052,9 @@ def run_op(kind: str, inp: dict, p: dict, backend: str = "cuda"):
 
 
 def kernel_call(kind: str, inp: dict, p: dict):
-    """The kernel's own wrapper on the op's prepared operands (rows
-    flattened, kv heads expanded), for timing; with its inputs."""
-    import torch
-
+    """The kernel's own wrapper on the op's operands (rows flattened; kv
+    heads as they come, with their ``group``), for timing; with its
+    inputs."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.grouped_matmul import kernel as gmm
     from repro_torch.kernels.rmsnorm import kernel as rms
@@ -1063,13 +1067,11 @@ def kernel_call(kind: str, inp: dict, p: dict):
     if kind == "grouped_matmul":
         return (lambda: gmm.grouped_matmul_cuda(inp["x"], inp["w"])), \
             [inp["x"], inp["w"]]
-    rep = p["H"] // p["KV"]
-    BH = p["B"] * p["H"]
-    q = inp["q"].reshape(BH, p["S"], p["d"])
-    k, v = (torch.repeat_interleave(inp[n], rep, dim=1).reshape(
-        BH, p["T"], p["d"]) for n in "kv")
+    q = inp["q"].reshape(p["B"] * p["H"], p["S"], p["d"])
+    k, v = (inp[n].reshape(p["B"] * p["KV"], p["T"], p["d"]) for n in "kv")
     return (lambda: fa.flash_attention_cuda(
-        q, k, v, causal=p["causal"], window=p["window"])), [q, k, v]
+        q, k, v, group=p["H"] // p["KV"], causal=p["causal"],
+        window=p["window"])), [q, k, v]
 
 
 def window_mask(p: dict, dev):
@@ -1086,10 +1088,21 @@ def window_mask(p: dict, dev):
     return mask
 
 
+def _sdpa_args(p: dict, dev) -> tuple:
+    """SDPA's mask arguments for a cell, and their description."""
+    if p["window"] == 0 and p["S"] == p["T"]:
+        return {"is_causal": True}, "is_causal"
+    if p["window"] == 0 and p["S"] == 1:
+        return {}, "no mask"
+    return {"attn_mask": window_mask(p, dev)}, "bool mask"
+
+
 def library_call(kind: str, ins: list, p: dict):
     """One PyTorch call computing the kernel's function on the kernel's
     operands (timed for the table, used nowhere in the port), and its
-    description."""
+    description.  Attention: SDPA on k and v expanded to every query
+    head outside the timed call, so the rows compare with the earlier
+    kernel's, which took expanded operands."""
     import torch
     import torch.nn.functional as F
 
@@ -1105,17 +1118,34 @@ def library_call(kind: str, ins: list, p: dict):
         return (lambda: torch.bmm(ins[0], ins[1])), "torch.bmm"
     from torch.nn.attention import SDPBackend
 
-    q, k, v = (t.reshape(p["B"], p["H"], -1, p["d"]) for t in ins)
-    if p["window"] == 0 and p["S"] == p["T"]:
-        kw, what = {"is_causal": True}, "is_causal"
-    elif p["window"] == 0 and p["S"] == 1:
-        kw, what = {}, "no mask"
-    else:
-        kw, what = {"attn_mask": window_mask(p, q.device)}, "bool mask"
+    q = ins[0].reshape(p["B"], p["H"], p["S"], p["d"])
+    k, v = (torch.repeat_interleave(
+        t.reshape(p["B"], p["KV"], p["T"], p["d"]), p["H"] // p["KV"],
+        dim=1) for t in ins[1:])
+    kw, what = _sdpa_args(p, q.device)
     # the backend SDPA's own dispatcher picks for these arguments
     backend = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
     return (lambda: F.scaled_dot_product_attention(q, k, v, **kw)), \
         f"sdpa({what}) [{backend}]"
+
+
+def library_gqa_call(ins: list, p: dict):
+    """SDPA with ``enable_gqa=True`` on the unexpanded k and v, and its
+    description, where ``torch._fused_sdp_choice`` picks a fused backend
+    for it; else (None, the reason)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    q = ins[0].reshape(p["B"], p["H"], p["S"], p["d"])
+    k, v = (t.reshape(p["B"], p["KV"], p["T"], p["d"]) for t in ins[1:])
+    kw, what = _sdpa_args(p, q.device)
+    kw["enable_gqa"] = True
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw))
+    name = f"sdpa({what}, enable_gqa) [{backend.name}]"
+    if backend == SDPBackend.MATH:
+        return None, name + ": no fused backend"
+    return (lambda: F.scaled_dot_product_attention(q, k, v, **kw)), name
 
 
 def attention_pairs(p: dict) -> int:
@@ -1145,17 +1175,9 @@ def model_bound(kind: str, p: dict, ins: list, out) -> dict:
         ops = 4 * p["d"] * attention_pairs(p) * p["B"] * p["H"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
-    bound = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    if kind == "flash_attention" and p["H"] > p["KV"]:
-        # the op's own bound: k and v read once per kv head, before the
-        # expansion the kernel's inputs carry
-        gqa = p["H"] // p["KV"]
-        kv = sum(t.numel() * t.element_size() for t in ins[1:])
-        op_bytes = nbytes - kv + kv // gqa
-        bound.update(gqa=gqa, op_bytes=op_bytes, op_bound_ms=max(
-            op_bytes / HBM_BYTES_PER_S * 1e3, t_ops))
-    return bound
+    # attention: k and v as the op takes them, once per kv head
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def timed_ms(lib, launch) -> tuple:
@@ -1224,6 +1246,8 @@ def model_main_path(dev, lib) -> tuple:
     version and the library call.  The kernels-line rows and a log."""
     import torch
 
+    from repro_torch.kernels.flash_attention import kernel as fa
+
     kernels = model_kernels()
     rows, cells = [], []
     for i, (kind, cell, p) in enumerate(MODEL_CELLS):
@@ -1233,8 +1257,14 @@ def model_main_path(dev, lib) -> tuple:
             k.launches = 0
         out = run_op(kind, inp, p)
         counts = {n: k.launches for n, k in kernels.items()}
-        check(counts[kind] == 1 and sum(counts.values()) == 1,
-              f"{kind} [{cell}]: launches {counts} on one op call")
+        # one launch, or two for a split-KV attention call
+        plan = fa.attention_plan(
+            p["B"] * p["H"], p["S"], p["T"], p["d"], p["H"] // p["KV"],
+            torch.bfloat16) if kind == "flash_attention" else {}
+        want = plan.get("launches", 1)
+        check(counts[kind] == want and sum(counts.values()) == want,
+              f"{kind} [{cell}]: launches {counts} on one op call, the "
+              f"design states {want}")
         plain_out = run_op(kind, inp, p, backend="torch")
         err = kernel_matches_plain(f"{kind} [{cell}]", "bfloat16", out,
                                    plain_out)
@@ -1249,6 +1279,15 @@ def model_main_path(dev, lib) -> tuple:
         check(lib_err < 0.1, f"{kind} [{cell}]: the library call "
               f"{lib_name} computes another function (err {lib_err})")
         lib_ms, _, lib_windows = timed_ms(lib, lib_call)
+        gqa_ms, gqa_name, gqa_err = None, None, None
+        if kind == "flash_attention" and p["H"] > p["KV"]:
+            gqa_call, gqa_name = library_gqa_call(ins, p)
+            if gqa_call is not None:
+                gqa_err = max_err(gqa_call().reshape(k_out.shape), k_out)
+                check(gqa_err < 0.1, f"{kind} [{cell}]: {gqa_name} "
+                      f"computes another function (err {gqa_err})")
+                gqa_ms = timed_ms(lib, gqa_call)[0]
+            del gqa_call
         p_ms = plain_ms(lambda: run_op(kind, inp, p, backend="torch"))
         bound = model_bound(kind, p, ins, out)
         rows.append({"name": f"{kind}[{cell}]", "route": "cuda",
@@ -1259,20 +1298,26 @@ def model_main_path(dev, lib) -> tuple:
                      "bound_ms": bound["bound_ms"],
                      "bound_by": bound["bound_by"], "library_ms": lib_ms})
         cells.append({"kind": kind, "cell": cell, "shape": p, "reps": reps,
-                      "windows": windows, **steps,
+                      "windows": windows, **steps, "plan": plan,
                       "library": lib_name,
                       "library_waits_for_device": lib_windows == 0,
-                      "library_err": lib_err, **bound})
-        log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}, max "
-            f"abs err {err:.3g} against the plain version (plain rms "
-            f"{steps['rms']:.4g}, limit there {steps['limit_at_rms']:.3g}, "
-            f"worst err/limit {steps['err_over_limit']:.3g}); kernel "
-            f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']}, {100 * bound['bound_ms'] / ms:.1f}%"
-            + (f"; op-level {bound['op_bound_ms']:.4f} ms with k and v "
-               f"read once per kv head, GQA x{bound['gqa']}"
-               if bound.get("gqa", 1) > 1 else "") + "), "
-            f"plain {p_ms:.3f} ms, {lib_name} {lib_ms:.4f} ms")
+                      "library_err": lib_err, "library_gqa": gqa_name,
+                      "library_gqa_ms": gqa_ms, "library_gqa_err": gqa_err,
+                      **bound})
+        log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}"
+            + (f" (tiles {plan['rows_per_block']} rows x "
+               f"{plan['keys_per_tile']} keys, d padded to "
+               f"{plan['head_dim_padded']}, {plan['splits']} kv splits)"
+               if plan else "")
+            + f", max abs err {err:.3g} against the plain version (plain "
+            f"rms {steps['rms']:.4g}, limit there "
+            f"{steps['limit_at_rms']:.3g}, worst err/limit "
+            f"{steps['err_over_limit']:.3g}); kernel {ms:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+            f"{100 * bound['bound_ms'] / ms:.1f}%), plain {p_ms:.3f} ms, "
+            f"{lib_name} {lib_ms:.4f} ms"
+            + (f", {gqa_name} " + (f"{gqa_ms:.4f} ms" if gqa_ms else
+                                   "not timed") if gqa_name else ""))
         del inp, out, ins, launch, lib_call
         torch.cuda.empty_cache()
     return rows, cells
@@ -1576,7 +1621,8 @@ def main() -> int:
     zero_rows = zero_rows_at_width(dev)
     model_s = time.time() - t0
     log(f"[model] {len(model_rows)} full-width cells through the ops, each "
-        f"launching its kernel once and within 2e-2 and two bf16 steps "
+        f"launching its kernel as its design states (1, or 2 for a "
+        f"split-KV call) and within 2e-2 and two bf16 steps "
         f"(+ 2^-8 rms) of its plain version; "
         f"{zero_rows} query rows without keys exactly 0 ({model_s:.1f} s); "
         f"{smi}")

@@ -2,7 +2,8 @@
 // so their kernel code builds as host C++ and runs on the CPU
 // (tests/test_torch_kernels_emulated.py).  Every CUDA thread of a block
 // is a std::thread; __syncthreads is a barrier over the block and each
-// warp shuffle a write, a barrier over the warp, a read and a barrier.
+// warp shuffle or vote a write, a barrier over the warp, a read and a
+// barrier.
 // Blocks run one after another, so a block's shared memory can be a
 // plain array.  Rounding matches the card's except where nvcc contracts
 // a multiply and an add into one fma.
@@ -11,6 +12,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -47,6 +49,13 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 using std::max;
 using std::min;
 
+inline float __expf(float x) { return std::exp(x); }
+inline float __uint_as_float(unsigned u) {
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+
 namespace emu {
 inline std::barrier<> *block_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
@@ -78,6 +87,16 @@ inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
 
 inline void __syncwarp() {
     emu::warp_bars[threadIdx.x / 32]->arrive_and_wait();
+}
+
+inline bool __any_sync(unsigned, bool pred) {
+    const unsigned t = threadIdx.x, w = t / 32;
+    emu::lanes[t] = pred;
+    emu::warp_bars[w]->arrive_and_wait();
+    bool any = false;
+    for (int l = 0; l < 32; ++l) any = any || emu::lanes[w * 32 + l] != 0.f;
+    emu::warp_bars[w]->arrive_and_wait();
+    return any;
 }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {

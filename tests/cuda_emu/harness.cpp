@@ -1,15 +1,21 @@
-// Runs one model kernel under the CPU emulation (cuda_runtime.h here).
+// Runs one model kernel, or one PTX twin, under the CPU emulation
+// (cuda_runtime.h and ptx.h here).
 //
 //   harness rmsnorm f32|bf16 DIR T D RESIDUAL EPS
 //   harness gmm     f32|bf16 DIR E C D F
-//   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE
+//   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE GROUP NSPLIT VEC
+//   harness ptx     mma|ldmatrix|ldmatrix_trans|cvt|ex2|cp_async DIR
 //
-// Inputs are raw arrays in DIR (x, r, scale, w, q, k, v .bin), outputs
-// are written there (y, res, out .bin).  The kernels' sources are the
-// kernel halves of kernels/*/csrc/*.cu, each in its own namespace
-// (rms, gmm, fla), prepared by the test.
+// Inputs are raw arrays in DIR (x, r, scale, w, q, k, v, a, b, c, m,
+// rows .bin), outputs are written there (y, res, out, d, regs .bin).
+// The kernels' sources are the kernel halves of kernels/*/csrc/*.cu,
+// each in its own namespace (rms, gmm, fla), prepared by the test.
+// flash runs the launcher's kernel for the dtype: float32 the CUDA-core
+// kernel, bfloat16 the tensor-core kernel (with NSPLIT > 1 its split-KV
+// form and then the combine kernel).
 #include "cuda_bf16.h"
 #include "cuda_runtime.h"
+#include "ptx.h"
 
 #include <cstdio>
 #include <cstdlib>
@@ -17,7 +23,10 @@
 #include <type_traits>
 
 namespace rms { float row[65536]; }
-namespace fla { float sm[60000]; }
+namespace fla {
+float sm[60000];
+alignas(16) unsigned char tc_smem[150000];
+}
 #include "rmsnorm.inc"
 #include "grouped_matmul.inc"
 #include "flash_attention.inc"
@@ -73,26 +82,132 @@ template <class T> int run(char **a) {
         const int BH = atoi(a[4]), S = atoi(a[5]), T_ = atoi(a[6]), d = atoi(a[7]);
         const int causal = atoi(a[8]), window = atoi(a[9]);
         const float scale = (float)atof(a[10]);
+        const int group = atoi(a[11]), nsplit = atoi(a[12]), vec = atoi(a[13]);
         auto q = rd<T>("q.bin", (size_t)BH * S * d);
-        auto kk = rd<T>("k.bin", (size_t)BH * T_ * d);
-        auto v = rd<T>("v.bin", (size_t)BH * T_ * d);
+        auto kk = rd<T>("k.bin", (size_t)BH / group * T_ * d);
+        auto v = rd<T>("v.bin", (size_t)BH / group * T_ * d);
         std::vector<T> o((size_t)BH * S * d);
-        const unsigned blocks = BH * ((S + 63) / 64);
-        auto go = [&](auto nj) {
-            constexpr int NJ = decltype(nj)::value;
-            emu::launch(dim3(blocks), 256, [&] {
-                fla::attn_kernel<T, NJ>(q.data(), kk.data(), v.data(),
-                                        o.data(), S, T_, d, scale, causal,
-                                        window);
-            });
-        };
-        const int nj = (d + 15) / 16;      // the launcher's choice
-        if (nj <= 2) go(std::integral_constant<int, 2>());
-        else if (nj <= 4) go(std::integral_constant<int, 4>());
-        else if (nj <= 8) go(std::integral_constant<int, 8>());
-        else if (nj <= 10) go(std::integral_constant<int, 10>());
-        else go(std::integral_constant<int, 16>());
+        if constexpr (std::is_same<T, float>::value) {
+            const unsigned blocks = BH * ((S + 63) / 64);
+            auto go = [&](auto nj) {
+                constexpr int NJ = decltype(nj)::value;
+                emu::launch(dim3(blocks), 256, [&] {
+                    fla::attn_f32_kernel<NJ>(q.data(), kk.data(), v.data(),
+                                             o.data(), BH, S, T_, d, group,
+                                             scale, causal, window);
+                });
+            };
+            const int nj = (d + 15) / 16;      // the launcher's choice
+            if (nj <= 2) go(std::integral_constant<int, 2>());
+            else if (nj <= 4) go(std::integral_constant<int, 4>());
+            else if (nj <= 8) go(std::integral_constant<int, 8>());
+            else if (nj <= 10) go(std::integral_constant<int, 10>());
+            else go(std::integral_constant<int, 16>());
+        } else {
+            const int n_rows = BH * S;
+            std::vector<float> pm((size_t)nsplit * n_rows),
+                pl((size_t)nsplit * n_rows),
+                pacc((size_t)nsplit * n_rows * d);
+            fla::AttnArgs args{q.data(), kk.data(), v.data(), o.data(),
+                               pm.data(), pl.data(), pacc.data(), S, T_, d,
+                               group, BH / group, nsplit, causal, window,
+                               vec, scale};
+            auto tiles = [&](auto dp, auto mt, auto wk) {
+                constexpr int DP = decltype(dp)::value;
+                constexpr int MT = decltype(mt)::value;
+                constexpr int WK = decltype(wk)::value;
+                constexpr int BQ = fla::Tiles<DP, MT, WK>::BQ;
+                const unsigned blocks =
+                    BH / group * nsplit * ((S * group + BQ - 1) / BQ);
+                emu::launch(dim3(blocks), 128, [&] {
+                    fla::attn_tc_kernel<DP, MT, WK>(args);
+                });
+            };
+            // the launcher's choice of rows a block (launch_dp)
+            using one = std::integral_constant<int, 1>;
+            auto go = [&](auto dp) {
+                if (S * group <= 16)
+                    tiles(dp, one(), std::integral_constant<int, 4>());
+                else if (decltype(dp)::value <= 160 && S * group >= 128)
+                    tiles(dp, std::integral_constant<int, 2>(), one());
+                else
+                    tiles(dp, one(), one());
+            };
+            // the launcher's choice of the padded head dim
+            if (d <= 64) go(std::integral_constant<int, 64>());
+            else if (d <= 128) go(std::integral_constant<int, 128>());
+            else if (d <= 160) go(std::integral_constant<int, 160>());
+            else go(std::integral_constant<int, 256>());
+            if (nsplit > 1)
+                emu::launch(dim3(n_rows), 64, [&] {
+                    fla::attn_combine_kernel(pm.data(), pl.data(), pacc.data(),
+                                             o.data(), n_rows, S * group,
+                                             group, S, d, nsplit);
+                });
+        }
         wr("out.bin", o);
+    }
+    return 0;
+}
+
+// one warp runs a twin on the lanes' inputs and writes each lane's result
+int run_ptx(const std::string &what) {
+    if (what == "mma") {
+        auto av = rd<unsigned>("a.bin", 32 * 4);
+        auto bv = rd<unsigned>("b.bin", 32 * 2);
+        auto cv = rd<float>("c.bin", 32 * 4);
+        std::vector<float> dv(32 * 4);
+        emu::launch(dim3(1), 32, [&] {
+            const int l = threadIdx.x;
+            unsigned ar[4];
+            float dr[4];
+            for (int i = 0; i < 4; ++i) {
+                ar[i] = av[4 * l + i];
+                dr[i] = cv[4 * l + i];
+            }
+            mma_bf16_16816(dr, ar, bv[2 * l], bv[2 * l + 1]);
+            for (int i = 0; i < 4; ++i) dv[4 * l + i] = dr[i];
+        });
+        wr("d.bin", dv);
+    } else if (what == "ldmatrix" || what == "ldmatrix_trans") {
+        auto m = rd<uint16_t>("m.bin", 32 * 8);     // 32 rows of 8 b16
+        auto rows = rd<int>("rows.bin", 32);        // the row of each lane
+        std::vector<unsigned> regs(32 * 4);
+        emu::launch(dim3(1), 32, [&] {
+            const int l = threadIdx.x;
+            unsigned r[4];
+            if (what == "ldmatrix") ldmatrix_x4(r, &m[8 * rows[l]]);
+            else ldmatrix_x4_trans(r, &m[8 * rows[l]]);
+            for (int i = 0; i < 4; ++i) regs[4 * l + i] = r[i];
+        });
+        wr("regs.bin", regs);
+    } else if (what == "cvt") {
+        auto f = rd<float>("f.bin", 64);            // (lo, hi) per lane
+        std::vector<unsigned> regs(32);
+        emu::launch(dim3(1), 32, [&] {
+            const int l = threadIdx.x;
+            regs[l] = cvt_bf16x2(f[2 * l], f[2 * l + 1]);
+        });
+        wr("regs.bin", regs);
+    } else if (what == "ex2") {
+        auto f = rd<float>("f.bin", 32);
+        std::vector<float> y(32);
+        emu::launch(dim3(1), 32,
+                    [&] { y[threadIdx.x] = ex2_approx(f[threadIdx.x]); });
+        wr("y.bin", y);
+    } else if (what == "cp_async") {
+        auto src = rd<unsigned char>("src.bin", 32 * 16);
+        auto bytes = rd<int>("bytes.bin", 32);      // 16 or 0 per lane
+        std::vector<unsigned char> dst(32 * 16, 0xAB);
+        emu::launch(dim3(1), 32, [&] {
+            const int l = threadIdx.x;
+            cp_async16(&dst[16 * l], &src[16 * l], bytes[l]);
+            cp_async_commit();
+            cp_async_wait<0>();
+        });
+        wr("dst.bin", dst);
+    } else {
+        return 2;
     }
     return 0;
 }
@@ -100,6 +215,7 @@ template <class T> int run(char **a) {
 int main(int argc, char **argv) {
     if (argc < 4) return 2;
     dir = argv[3];
+    if (std::string(argv[1]) == "ptx") return run_ptx(argv[2]);
     return std::string(argv[2]) == "bf16" ? run<__nv_bfloat16>(argv)
                                           : run<float>(argv);
 }

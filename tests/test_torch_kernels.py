@@ -159,6 +159,17 @@ def test_flash_attention_matches_model_sdpa():
                                np.asarray(want), rtol=3e-5, atol=3e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV", [(8, 4), (8, 2), (4, 1)])
+def test_flash_attention_gqa_ops_match_jax(H, KV, dtype):
+    """``backend="torch"`` keeps the reference's expansion: equal to the
+    JAX op on GQA inputs in both dtypes."""
+    a = samples.kernel_inputs("flash_attention", 50 + H // KV,
+                              q_shape=(2, H, 96, 32),
+                              kv_shape=(2, KV, 96, 32))
+    _flash_pairs(a, dtype, window=40, bq=32, bk=32)
+
+
 @pytest.mark.parametrize("rep", [2, 4])
 def test_flash_attention_gqa_repeat_order(rep):
     """Heads expand as ``jnp.repeat`` does, ``[k0, k0, k1, k1, ...]``:
@@ -360,6 +371,82 @@ def test_shape_contract_raises_value_error(case):
             call()
 
 
+@pytest.mark.parametrize("group,q_shape,kv_shape,what", [
+    (3, (8, 64, 32), (8, 64, 32), "dividing"),     # 3 does not divide 8
+    (0, (8, 64, 32), (8, 64, 32), "dividing"),
+    (2.0, (8, 64, 32), (4, 64, 32), "dividing"),
+    (2, (8, 64, 32), (8, 64, 32), "BH / group"),   # k/v not 8 / 2 heads
+    (4, (8, 64, 32), (4, 64, 32), "BH / group"),
+    (2, (8, 64, 32), (4, 64, 16), "BH / group"),   # head dims disagree
+])
+def test_flash_attention_cuda_refuses_a_bad_group(group, q_shape, kv_shape,
+                                                  what):
+    """A ``group`` that does not divide the query heads, or k/v shapes that
+    disagree with it, raise ``ValueError`` before any launch (the CPU
+    tensors here would raise ``DeviceError`` at the launch)."""
+    q, kv = torch.zeros(q_shape), torch.zeros(kv_shape)
+    before = fa.KERNEL.launches
+    with pytest.raises(ValueError, match=what):
+        fa.flash_attention_cuda(q, kv, kv, group=group)
+    assert fa.KERNEL.launches == before
+
+
+def test_flash_attention_op_refuses_heads_not_a_multiple_of_kv():
+    q, kv = torch.zeros(1, 6, 32, 16), torch.zeros(1, 4, 32, 16)
+    for backend in ("torch", "ref"):
+        with pytest.raises(ValueError, match="multiple of the 4 kv heads"):
+            K.flash_attention(q, kv, kv, backend=backend)
+
+
+def test_flash_attention_op_hands_the_kernel_kv_heads_unexpanded(
+        monkeypatch):
+    """``backend="cuda"``: no ``repeat_interleave``; the kernel gets k/v
+    as (B KV, T, d) and ``group = H / KV``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen = {}
+
+    def kernel(q, k, v, **kw):
+        seen.update(q=q.shape, k=k.shape, v=v.shape, **kw)
+        return torch.zeros_like(q)
+
+    def expand(*a, **k):
+        raise AssertionError("the kernel path expanded the kv heads")
+    monkeypatch.setattr(fa_ops, "on_card", lambda *a: None)
+    monkeypatch.setattr(fa_ops, "flash_attention_cuda", kernel)
+    monkeypatch.setattr(torch, "repeat_interleave", expand)
+    q, kv = torch.zeros(2, 8, 64, 32), torch.zeros(2, 2, 96, 32)
+    out = K.flash_attention(q, kv, kv, window=16)
+    assert out.shape == (2, 8, 64, 32)
+    assert (seen["q"], seen["k"], seen["v"]) == (
+        (16, 64, 32), (4, 96, 32), (4, 96, 32))
+    assert (seen["group"], seen["window"], seen["causal"]) == (4, 16, True)
+
+
+@pytest.mark.parametrize("BH,S,T,d,group,splits,rows,keys", [
+    (128, 1, 32768, 128, 2, 4, 16, 64),     # qwen3-1.7b decode, 8 seqs
+    (16, 4096, 4096, 128, 2, 1, 128, 64),   # qwen3-1.7b prefill
+    (8, 1, 4096, 128, 2, 8, 16, 64),        # 4 blocks; 8-tile chunks
+    (8, 1, 256, 64, 1, 1, 16, 64),          # 4 kv tiles: too few
+    (16, 1, 2048, 256, 16, 4, 16, 64),      # one block, 32 kv tiles
+    (512, 1, 4096, 128, 1, 1, 16, 64),      # 512 blocks fill the card
+    (8, 96, 4096, 256, 1, 16, 64, 32),      # d = 256: 32-key tiles
+    (32, 4096, 4096, 160, 4, 1, 128, 32),   # d = 160, two m-tiles
+])
+def test_kv_splits_follow_the_shapes(BH, S, T, d, group, splits, rows,
+                                     keys):
+    """Split-KV is a function of the shapes: as many chunks as keep the
+    blocks within one wave of two per SM of an H100, each of 8 kv tiles
+    or more; the rows a block and the keys a kv tile as the launcher
+    picks them."""
+    plan = fa.attention_plan(BH, S, T, d, group, torch.bfloat16)
+    assert fa.kv_splits(BH, S, T, d, group) == plan["splits"] == splits
+    assert plan["launches"] == (2 if splits > 1 else 1)
+    assert (plan["rows_per_block"], plan["keys_per_tile"]) == (rows, keys)
+    f32 = fa.attention_plan(BH, S, T, d, group, torch.float32)
+    assert (f32["splits"], f32["launches"]) == (1, 1)
+
+
 def _op_calls(backend=None):
     kw = {} if backend is None else {"backend": backend}
     x = torch.zeros(64, 32)
@@ -434,7 +521,8 @@ def test_cuda_sources_call_no_library_kernel():
                              re.IGNORECASE), p
         assert "__global__" in text and "cudaGetLastError" in text, p
     banned = {"matmul", "bmm", "mm", "einsum", "baddbmm", "addmm",
-              "scaled_dot_product_attention", "rms_norm", "linear"}
+              "scaled_dot_product_attention", "rms_norm", "linear",
+              "repeat_interleave", "repeat", "expand"}
     for mod, fn in ((rms, "fused_rmsnorm_cuda"),
                     (gmm, "grouped_matmul_cuda"),
                     (fa, "flash_attention_cuda")):

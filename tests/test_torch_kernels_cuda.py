@@ -51,12 +51,12 @@ def _close(got, want, dtype: str) -> None:
                                want.float().cpu().numpy(), **_tol(dtype))
 
 
-def _launched(kernel, fn):
-    """``fn()``'s result, synchronised, checking it launched once."""
+def _launched(kernel, fn, n: int = 1):
+    """``fn()``'s result, synchronised, checking it launched ``n`` times."""
     before = kernel.launches
     out = fn()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches == before + n
     return out
 
 
@@ -106,13 +106,18 @@ def test_grouped_matmul_kernel_matches_plain(card, E, C, D, F, bc, bf, bd,
 # B5 flash attention
 # ---------------------------------------------------------------------------
 
-def _attn(card, dtype, S, T, d, *, BH=3, seed=0, **kw):
+def _attn(card, dtype, S, T, d, *, BH=3, seed=0, group=1, **kw):
+    """The kernel on (BH, S, d) q and (BH / group, T, d) k/v against the
+    plain version on k/v expanded as the reference's jnp.repeat, with
+    the launches :func:`attention_plan` states."""
     a = samples.kernel_inputs("flash_attention", seed, q_shape=(BH, S, d),
-                              kv_shape=(BH, T, d))
+                              kv_shape=(BH // group, T, d))
     q, k, v = (_on(a[n], dtype, card) for n in "qkv")
-    got = _launched(fa.KERNEL,
-                    lambda: fa.flash_attention_cuda(q, k, v, **kw))
-    _close(got, fa.flash_attention_plain(q, k, v, **kw), dtype)
+    plan = fa.attention_plan(BH, S, T, d, group, q.dtype)
+    got = _launched(fa.KERNEL, lambda: fa.flash_attention_cuda(
+        q, k, v, group=group, **kw), plan["launches"])
+    kx, vx = (t.repeat_interleave(group, dim=0) for t in (k, v))
+    _close(got, fa.flash_attention_plain(q, kx, vx, **kw), dtype)
     return got
 
 
@@ -155,16 +160,51 @@ def test_flash_attention_windows(card, causal, window, S, T):
           bq=64, bk=64)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,S,T,d,window", [
+    (2, 128, 128, 64, 0), (4, 256, 256, 128, 0), (2, 96, 200, 160, 64),
+    (8, 64, 64, 256, 0),
+])
+def test_flash_attention_kv_heads_indexed(card, group, S, T, d, window,
+                                          dtype):
+    _attn(card, dtype, S, T, d, BH=8, seed=10 + group, group=group,
+          window=window, bq=S, bk=T)
+
+
+@pytest.mark.parametrize("group,S,T,d,window,splits", [
+    (2, 1, 4096, 128, 0, 8),          # decode
+    (1, 1, 4096, 64, 0, 8),
+    (4, 1, 2048, 256, 0, 4),
+    (2, 64, 2048, 64, 10, 4),         # chunks masked off by the window
+    (2, 1, 4096, 128, 100, 8),        # all but the last chunks empty
+    (1, 1100, 1024, 32, 0, 2),        # rows without keys
+])
+def test_flash_attention_split_kv(card, group, S, T, d, window, splits):
+    """The shapes choose the splits; both launches against the plain
+    version."""
+    assert fa.attention_plan(8, S, T, d, group, torch.bfloat16)[
+        "splits"] == splits
+    got = _attn(card, "bfloat16", S, T, d, BH=8, seed=20, group=group,
+                window=window, bq=S, bk=T)
+    if S > T:
+        assert torch.equal(got[:, :S - T], torch.zeros_like(got[:, :S - T]))
+
+
 # ---------------------------------------------------------------------------
 # the ops on the card
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("H,KV", [(8, 2), (8, 4), (16, 1)])
-def test_flash_attention_op_gqa(card, H, KV):
+def test_flash_attention_op_gqa(card, H, KV, monkeypatch):
+    """The op hands the kv heads to the kernel unexpanded."""
     a = samples.kernel_inputs("flash_attention", 8, q_shape=(2, H, 128, 64),
                               kv_shape=(2, KV, 128, 64))
     q, k, v = (_on(a[n], "bfloat16", card) for n in "qkv")
-    got = _launched(fa.KERNEL, lambda: K.flash_attention(q, k, v))
+    expand = torch.repeat_interleave
+    with monkeypatch.context() as m:
+        m.setattr(torch, "repeat_interleave", None)
+        got = _launched(fa.KERNEL, lambda: K.flash_attention(q, k, v))
+    assert torch.repeat_interleave is expand
     _close(got, K.flash_attention(q, k, v, backend="torch"), "bfloat16")
 
 

@@ -5,7 +5,11 @@ There is no ``nvcc`` and no card here, so the CUDA kernels of
 kernel halves (everything before the ``extern "C"`` launchers) build as
 host C++ against ``tests/cuda_emu/``: a stand-in runtime that runs each
 CUDA thread of a block as a ``std::thread``, with barriers for
-``__syncthreads`` and the warp shuffles.  The kernels' own index
+``__syncthreads`` and the warp shuffles, and ``ptx.h``, CPU twins of the
+inline PTX of flash attention's tensor-core kernel (``mma.sync``,
+``ldmatrix``, ``cvt.rn.bf16x2``, ``ex2.approx``, ``cp.async``) that
+follow the PTX ISA's fragment layouts lane by lane; each twin is also
+held against a plain matrix product, rounding, power or copy here.  The kernels' own index
 arithmetic, tiling, masking, reductions and roundings then run on the
 CPU, at small shapes that cross their tiles' edges, and are held
 against the plain versions with the reference's tolerance (rtol = atol
@@ -64,6 +68,11 @@ def harness(tmp_path_factory):
                        timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
 
+    def raw(*args) -> None:
+        r = subprocess.run([str(exe), *map(str, args)], capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+
     def run(kernel: str, dtype: torch.dtype, inputs: dict, args,
             outputs: dict) -> dict:
         work = Path(tmp_path_factory.mktemp(kernel))
@@ -82,6 +91,8 @@ def harness(tmp_path_factory):
             t = torch.from_numpy(raw.reshape(shape))
             res[name] = t.view(BF16) if dtype == BF16 else t
         return res
+    run.raw = raw
+    run.workdir = lambda: Path(tmp_path_factory.mktemp("ptx"))
     return run
 
 
@@ -125,6 +136,30 @@ def test_grouped_matmul_kernel_code(harness, E, C, D, F, dtype):
     _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), dtype)
 
 
+def _flash(harness, q, k, v, *, causal=True, window=0, group=1, nsplit=1):
+    """The launcher's kernel for q's dtype on (BH, S, d) q and
+    (BH / group, T, d) k/v, under the emulation."""
+    BH, S, d = q.shape
+    T = k.shape[1]
+    scale = float(np.float32(d ** -0.5))
+    return harness("flash", q.dtype, {"q": q, "k": k, "v": v},
+                   (BH, S, T, d, int(causal), window, repr(scale), group,
+                    nsplit, int(d % 8 == 0)), {"out": (BH, S, d)})["out"]
+
+
+def _plain(q, k, v, group=1, **kw):
+    """The plain version on k/v expanded as the reference's jnp.repeat."""
+    k, v = (t.repeat_interleave(group, dim=0) for t in (k, v))
+    return fa.flash_attention_plain(q, k, v, bq=q.shape[1], bk=k.shape[1],
+                                    **kw)
+
+
+def _qkv(seed, BH, S, T, d, dtype, group=1):
+    a = samples.kernel_inputs("flash_attention", seed, q_shape=(BH, S, d),
+                              kv_shape=(BH // group, T, d))
+    return (torch.from_numpy(a[n]).to(DTYPES[dtype]) for n in "qkv")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("BH,S,T,d,causal,window", [
     (2, 64, 64, 32, True, 0),
@@ -135,20 +170,161 @@ def test_grouped_matmul_kernel_code(harness, E, C, D, F, dtype):
     (1, 128, 128, 64, False, 40),     # window without causal
     (1, 192, 64, 32, True, 0),        # rows without keys
     (1, 64, 64, 160, True, 0),
+    (1, 160, 160, 144, True, 0),      # two m-tiles a warp, d padded
     (1, 64, 64, 256, True, 16),
 ])
 def test_flash_attention_kernel_code(harness, BH, S, T, d, causal, window,
                                      dtype):
-    a = samples.kernel_inputs("flash_attention", 3, q_shape=(BH, S, d),
-                              kv_shape=(BH, T, d))
-    q, k, v = (torch.from_numpy(a[n]).to(DTYPES[dtype]) for n in "qkv")
-    scale = float(np.float32(d ** -0.5))
-    got = harness("flash", q.dtype, {"q": q, "k": k, "v": v},
-                  (BH, S, T, d, int(causal), window, repr(scale)),
-                  {"out": (BH, S, d)})["out"]
-    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                    bq=S, bk=T)
-    _close(got, want, dtype)
+    """float32 runs the CUDA-core kernel, bfloat16 the tensor-core one."""
+    q, k, v = _qkv(3, BH, S, T, d, dtype)
+    got = _flash(harness, q, k, v, causal=causal, window=window)
+    _close(got, _plain(q, k, v, causal=causal, window=window), dtype)
     if causal and S > T:
         assert torch.equal(got[:, :S - T].float(),
                            torch.zeros(BH, S - T, d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,BH,S,T,d,window", [
+    (2, 4, 96, 160, 64, 0),           # two kv heads, packed rows ragged
+    (4, 4, 40, 40, 32, 24),           # one kv head, window
+])
+def test_flash_attention_kv_heads_indexed(harness, group, BH, S, T, d,
+                                          window, dtype):
+    """k/v hold BH / group heads; query head qh reads kv head qh // group,
+    as the plain version on jnp.repeat-expanded k/v."""
+    q, k, v = _qkv(11 + group, BH, S, T, d, dtype, group)
+    got = _flash(harness, q, k, v, window=window, group=group)
+    _close(got, _plain(q, k, v, group, window=window), dtype)
+
+
+@pytest.mark.parametrize("case,group,BH,S,T,d,window,nsplit", [
+    ("decode", 2, 4, 1, 512, 128, 0, 4),
+    ("chunk masked off by a window", 2, 2, 64, 512, 64, 10, 2),
+    ("empty chunk", 2, 2, 2, 512, 64, 70, 3),
+    ("rows without keys", 1, 2, 96, 64, 32, 0, 2),
+    ("more splits than tiles", 4, 4, 3, 100, 160, 0, 5),
+])
+def test_flash_attention_split_kv(harness, case, group, BH, S, T, d, window,
+                                  nsplit):
+    """The tensor-core kernel writes each chunk's (m, l, acc) and the
+    combine kernel merges them; chunks without an open key add nothing
+    and a row without keys is 0."""
+    q, k, v = _qkv(21, BH, S, T, d, "bfloat16", group)
+    got = _flash(harness, q, k, v, window=window, group=group, nsplit=nsplit)
+    _close(got, _plain(q, k, v, group, window=window), "bfloat16")
+    one = _flash(harness, q, k, v, window=window, group=group)
+    _close(got, one, "bfloat16")
+    if S > T:
+        assert torch.equal(got[:, :S - T].float(), torch.zeros(BH, S - T, d))
+
+
+def test_flash_attention_rows_not_of_whole_chunks(harness):
+    """d % 8 != 0: the tensor-core kernel loads element by element."""
+    q, k, v = _qkv(31, 2, 70, 90, 36, "bfloat16")
+    _close(_flash(harness, q, k, v, window=50),
+           _plain(q, k, v, window=50), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# the PTX twins, lane by lane against the PTX ISA's fragment layouts
+# ---------------------------------------------------------------------------
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(x.astype(np.float32)).to(BF16).view(
+        torch.int16).numpy().astype(np.uint16)
+
+
+def _pairs(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    return lo.astype(np.uint32) | (hi.astype(np.uint32) << 16)
+
+
+def _ptx(harness, what, inputs: dict, out: str, dtype, n: int):
+    """Run the twin ``what`` on raw arrays; its output as a numpy array."""
+    work = harness.workdir()
+    for name, arr in inputs.items():
+        arr.tofile(work / f"{name}.bin")
+    harness.raw("ptx", what, work)
+    return np.fromfile(work / f"{out}.bin", dtype)[:n]
+
+
+def test_ptx_mma_twin(harness):
+    """m16n8k16: A (16 x 16) and B (16 x 8) spread over the lanes as the
+    ISA's tables say; D = A B + C read back from its lanes."""
+    rng = np.random.default_rng(0)
+    A = samples.bf16_round(rng.standard_normal((16, 16)))
+    B = samples.bf16_round(rng.standard_normal((16, 8)))
+    C = rng.standard_normal((16, 8)).astype(np.float32)
+    Ab, Bb = _bf16_bits(A), _bf16_bits(B)
+    a = np.zeros((32, 4), np.uint32)
+    b = np.zeros((32, 2), np.uint32)
+    c = np.zeros((32, 4), np.float32)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, (r, k) in enumerate([(g, 2 * t), (g + 8, 2 * t),
+                                    (g, 2 * t + 8), (g + 8, 2 * t + 8)]):
+            a[lane, i] = _pairs(Ab[r, k], Ab[r, k + 1])
+        for i, k in enumerate([2 * t, 2 * t + 8]):
+            b[lane, i] = _pairs(Bb[k, g], Bb[k + 1, g])
+        c[lane] = [C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t],
+                   C[g + 8, 2 * t + 1]]
+    d = _ptx(harness, "mma", {"a": a, "b": b, "c": c}, "d", np.float32,
+             128).reshape(32, 4)
+    D = np.zeros((16, 8), np.float32)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        D[g, 2 * t], D[g, 2 * t + 1] = d[lane, 0], d[lane, 1]
+        D[g + 8, 2 * t], D[g + 8, 2 * t + 1] = d[lane, 2], d[lane, 3]
+    np.testing.assert_allclose(D, A.astype(np.float64) @ B + C, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_ptx_ldmatrix_twin(harness, trans):
+    """x4: lanes 8i .. 8i+7 name the rows of matrix i (here in a shuffled
+    order); lane 4g + t gets row g, columns 2t and 2t + 1 of each matrix,
+    or, transposed, rows 2t and 2t + 1 of column g."""
+    rng = np.random.default_rng(1)
+    m = rng.integers(0, 1 << 16, (32, 8), dtype=np.uint16)
+    rows = rng.permutation(32).astype(np.int32)
+    regs = _ptx(harness, "ldmatrix_trans" if trans else "ldmatrix",
+                {"m": m, "rows": rows}, "regs", np.uint32,
+                128).reshape(32, 4)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i in range(4):
+            mat = m[rows[8 * i:8 * i + 8]]          # matrix i, 8 x 8
+            if trans:
+                mat = mat.T
+            assert regs[lane, i] == _pairs(mat[g, 2 * t], mat[g, 2 * t + 1])
+
+
+def test_ptx_cvt_bf16x2_twin(harness):
+    """Two floats rounded to bf16 (nearest even, ties included), the
+    first in the lower half."""
+    rng = np.random.default_rng(3)
+    f = rng.standard_normal(64).astype(np.float32)
+    # exact ties between two bf16 values: round to the even one
+    f[:8] = (np.arange(8, dtype=np.uint32) << 16 | 0x3F808000).view(
+        np.float32)
+    regs = _ptx(harness, "cvt", {"f": f}, "regs", np.uint32, 32)
+    bits = _bf16_bits(f).reshape(32, 2)
+    np.testing.assert_array_equal(regs, _pairs(bits[:, 0], bits[:, 1]))
+
+
+def test_ptx_ex2_twin(harness):
+    """2^x, the exp of the kernel's log2-e-scaled logits."""
+    x = np.linspace(-30, 2, 32).astype(np.float32)
+    y = _ptx(harness, "ex2", {"f": x}, "y", np.float32, 32)
+    np.testing.assert_allclose(y, np.exp2(x.astype(np.float64)), rtol=1e-6)
+
+
+def test_ptx_cp_async_twin(harness):
+    """16 bytes a lane; src-size 0 writes 16 zero bytes."""
+    rng = np.random.default_rng(2)
+    src = rng.integers(1, 256, (32, 16), dtype=np.uint8)
+    nbytes = np.where(np.arange(32) % 3 == 0, 0, 16).astype(np.int32)
+    dst = _ptx(harness, "cp_async", {"src": src, "bytes": nbytes}, "dst",
+               np.uint8, 512).reshape(32, 16)
+    want = np.where((nbytes == 16)[:, None], src, 0)
+    np.testing.assert_array_equal(dst, want)

@@ -8,11 +8,17 @@ summation order it passes, and the faults a wrong kernel would show at
 a decode-like shape (one kv tile dropped, the keys shifted by a few
 positions, every output halved, one head's output replaced) fail.  The
 reference's 2e-2 ``allclose`` passes the first two.
+
+The same limit fixes how the bf16 tensor-core kernel multiplies P by V:
+P rounded once to bf16 before the product (the usual FlashAttention-2
+move) fails it at full width; P split into hi = bf16(p) and lo =
+bf16(p - hi), each multiplied by V into one f32 sum, passes it.
 """
 
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,3 +90,50 @@ def test_the_reference_tolerance_alone_passes_small_faults(smoke, decode):
         bad = fault(q, k, v, want)
         assert torch.allclose(bad.float(), want.float(), rtol=2e-2,
                               atol=2e-2)
+
+
+def _attention_with_p(q, k, v, p_form: str, bk: int = 128):
+    """One causal head, q (S, d) and k/v (T, d): the plain version's
+    arithmetic (f32 logits, online softmax over ``bk``-wide tiles), with
+    P as the P V product takes it: ``"f32"`` (the reference's), ``"bf16"``
+    (rounded once) or ``"hi_lo"`` (hi = bf16(p), lo = bf16(p - hi), two
+    products added in f32)."""
+    S, d = q.shape
+    T = k.shape[0]
+    q_pos = torch.arange(S)[:, None] + (T - S)
+    m = torch.full((S, 1), fa.NEG_INF)
+    l = torch.zeros((S, 1))
+    acc = torch.zeros((S, d))
+    for k0 in range(0, T, bk):
+        kf, vf = k[k0:k0 + bk].float(), v[k0:k0 + bk].float()
+        s = q.float() @ kf.T * d ** -0.5
+        mask = (k0 + torch.arange(bk))[None, :] <= q_pos
+        s = torch.where(mask, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l = alpha * l + p.sum(dim=1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = {"f32": lambda: p @ vf, "bf16": lambda: hi @ vf,
+              "hi_lo": lambda: hi @ vf + (p - hi).bfloat16().float() @ vf
+              }[p_form]()
+        acc = alpha * acc + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("S,d", [(4096, 128), (2048, 256)])
+def test_p_rounded_once_fails_and_hi_lo_passes(smoke, S, d):
+    """Full-width causal heads (d = 128 at 4096 tokens, d = 256 at 2048):
+    one bf16 rounding of P leaves hundreds of elements 2.5-5x over the
+    limit; the hi/lo split stays under half of it."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((S, d), np.float32))
+               .bfloat16() for _ in range(3))
+    want = _attention_with_p(q, k, v, "f32")
+    with pytest.raises(RuntimeError, match="the limit"):
+        smoke.within_bf16_steps("P in bf16", _attention_with_p(
+            q, k, v, "bf16"), want)
+    worst = smoke.within_bf16_steps("P as hi + lo", _attention_with_p(
+        q, k, v, "hi_lo"), want)
+    assert worst["err_over_limit"] <= 0.5
