@@ -64,17 +64,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``flash_attention`` (built in phase 2, in parallel with the policy
    kernels): at the CPU tests' shapes, float32 and bfloat16, each CUDA
    kernel within rtol = atol = 2e-5 / 2e-2 of its plain version on the
-   card, rows without keys exactly 0; then nine full-width bf16 cells
+   card, rows without keys exactly 0, the grouped matmul on both bf16
+   routes (``wgmma`` fed by TMA, and WMMA where TMA cannot describe the
+   operands) as ``gmm_plan`` states; then ten full-width bf16 cells
    from shipped configs (qwen3-1.7b, qwen2.5-32b, olmoe-1b-7b,
-   llava-next-mistral-7b, recurrentgemma-9b, stablelm-12b) through the
-   public ops with the launch counts set to 0 before each and read
-   after (one launch each), each output within 2e-2 of the plain
-   version and, element by element, within two bf16 steps of it plus
-   half a step at its RMS; each kernel's device time beside its bound (bytes at 3.35
-   TB/s or operations at 989 TFLOP/s), its plain version's time and
-   one PyTorch call's (``F.rms_norm``, ``torch.bmm``, SDPA with the
-   backend its dispatcher picks named); rows without keys
-   exactly 0 at a model's width.  Nothing in the phase is caught.
+   llama4-scout-17b-a16e, llava-next-mistral-7b, recurrentgemma-9b,
+   stablelm-12b) through the public ops with the launch counts set to 0
+   before each and read after (one launch each, two for a split-KV
+   attention call; the grouped matmul on the ``wgmma`` route), each
+   output within 2e-2 of the plain version and, element by element,
+   within two bf16 steps of it plus half a step at its RMS; each
+   kernel's device time beside its bound (bytes at 3.35 TB/s or
+   operations at 989 TFLOP/s), its plain version's time and one PyTorch
+   call's (``F.rms_norm``, ``torch.bmm``, SDPA with the backend its
+   dispatcher picks named), the grouped matmul's also beside the WMMA
+   kernel's on the same inputs; rows without keys exactly 0 at a
+   model's width.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -304,8 +309,10 @@ def device_ms(lib, launch, reps: int = TIMING_REPS, warmup: int = 20,
     """Device time of one ``launch()`` (one kernel on the current
     stream).  ``reps`` launches are queued behind the spin kernel, so
     they run back to back on the card once it ends, and CUDA events
-    around them read device time, not the host's issue rate.  Fails if
-    the host had not queued them all before the spin ended."""
+    around them read device time, not the host's issue rate.  A window
+    counts only if the host had queued every launch before the spin
+    ended; one it had not (the shared host stalled) is measured again
+    behind a spin four times longer, and the third such window fails."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -313,16 +320,19 @@ def device_ms(lib, launch, reps: int = TIMING_REPS, warmup: int = 20,
         launch()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    check(lib.bpf_spin_launch(stream, spin_ns) == 0, "spin kernel launch")
-    start.record()
-    for _ in range(reps):
-        launch()
-    end.record()
-    queued = not start.query()
-    end.synchronize()
-    check(queued, "timing launches were still being queued when the "
-          "spin kernel ended")
-    return start.elapsed_time(end) / reps
+    for _ in range(3):
+        check(lib.bpf_spin_launch(stream, spin_ns) == 0, "spin kernel launch")
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        spin_ns *= 4
+    check(False, f"timing launches were still being queued when the spin "
+          f"kernel ended, three times (the last spin {spin_ns // 4} ns)")
 
 
 def empty_device_ms(lib) -> float:
@@ -862,6 +872,9 @@ MODEL_CELLS = (
      dict(T=4096, D=5120, residual=True)),
     ("grouped_matmul", "olmoe-1b-7b, 4096 tokens",
      dict(E=64, C=640, D=2048, F=1024)),
+    # the expert up-projection at 8192 tokens, top-1, capacity factor 1.25
+    ("grouped_matmul", "llama4-scout-17b-a16e, 8192 tokens",
+     dict(E=16, C=640, D=5120, F=8192)),
     ("flash_attention", "qwen3-1.7b prefill",
      dict(B=1, H=16, KV=8, S=4096, T=4096, d=128, causal=True, window=0)),
     ("flash_attention", "qwen3-1.7b decode",
@@ -875,6 +888,9 @@ MODEL_CELLS = (
     ("flash_attention", "stablelm-12b",
      dict(B=1, H=32, KV=8, S=4096, T=4096, d=160, causal=True, window=0)),
 )
+# the WMMA kernel's time at a grouped-matmul cell as PERF.md records it
+# from before the wgmma route (NVIDIA H100 80GB HBM3, 700.00 W)
+WMMA_RECORDED_MS = {"olmoe-1b-7b, 4096 tokens": 1.7356}
 MODEL_SOURCES = {
     "fused_rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                       "src/repro/kernels/rmsnorm/kernel.py:31"),
@@ -983,14 +999,24 @@ def model_test_shapes(dev) -> dict:
                 rms.fused_rmsnorm_cuda(x, s, r, bt=128),
                 rms.fused_rmsnorm_plain(x, s, r, bt=128))
             worst["fused_rmsnorm"] = max(worst["fused_rmsnorm"], e)
-        a = samples.kernel_inputs("grouped_matmul", 0, E=4, C=128, D=256,
-                                  F=128)
-        x, w = on(a["x"]), on(a["w"])
-        e = kernel_matches_plain(
-            f"grouped_matmul {dtype}", dtype,
-            gmm.grouped_matmul_cuda(x, w, bc=64, bf=64, bd=128),
-            gmm.grouped_matmul_plain(x, w, bc=64, bf=64, bd=128))
-        worst["grouped_matmul"] = max(worst["grouped_matmul"], e)
+        # bf16: the first on wgmma, the second on WMMA (F % 8 != 0)
+        for E, C, D, F, kw in ((4, 128, 256, 128, dict(bc=64, bf=64,
+                                                       bd=128)),
+                               (1, 128, 48, 130, dict(bc=128, bf=130,
+                                                      bd=48))):
+            a = samples.kernel_inputs("grouped_matmul", 0, E=E, C=C, D=D,
+                                      F=F)
+            x, w = on(a["x"]), on(a["w"])
+            route = gmm.gmm_plan(E, C, D, F, tdt, x.data_ptr(),
+                                 w.data_ptr())["route"]
+            check(route == {"float32": "cuda cores"}.get(
+                dtype, "wgmma" if F % 8 == 0 else "wmma"),
+                f"grouped_matmul {dtype} {E, C, D, F}: route {route}")
+            e = kernel_matches_plain(
+                f"grouped_matmul {dtype} {route}", dtype,
+                gmm.grouped_matmul_cuda(x, w, **kw),
+                gmm.grouped_matmul_plain(x, w, **kw))
+            worst["grouped_matmul"] = max(worst["grouped_matmul"], e)
         # the last: kv heads indexed in the kernel, split-KV in bf16
         for BH, g, S, T, d, kw in (
                 (3, 1, 128, 256, 128, dict(bq=64, bk=128)),
@@ -1074,6 +1100,27 @@ def kernel_call(kind: str, inp: dict, p: dict):
         window=p["window"])), [q, k, v]
 
 
+def wmma_call(inp: dict):
+    """The grouped matmul's WMMA kernel (the bf16 route before the wgmma
+    one) on a cell's operands, launched past ``gmm_plan`` for a
+    comparison within this run; its launches are not the main path's."""
+    import torch
+
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
+
+    x, w = inp["x"], inp["w"]
+    (E, C, D), F = x.shape, w.shape[2]
+    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    blocks = E * -(-C // 128) * -(-F // 128)
+
+    def call():
+        gmm.KERNEL.launch("gmm_launch", x.data_ptr(), w.data_ptr(),
+                          out.data_ptr(), E, C, D, F,
+                          gmm.GMM_ROUTES["wmma"], blocks)
+        return out
+    return call
+
+
 def window_mask(p: dict, dev):
     """The (S, T) boolean mask of _attn_kernel: queries at the end."""
     import torch
@@ -1112,8 +1159,10 @@ def library_call(kind: str, ins: list, p: dict):
             r = ins[2]
             return (lambda: F.rms_norm(x + r, (p["D"],), scale, 1e-6)), \
                 "F.rms_norm(x + r)"
+        # one of the kernel's two outputs: without a residual the kernel
+        # still writes res (= x), F.rms_norm only y
         return (lambda: F.rms_norm(x, (p["D"],), scale, 1e-6)), \
-            "F.rms_norm"
+            "F.rms_norm (writes y, not res)"
     if kind == "grouped_matmul":
         return (lambda: torch.bmm(ins[0], ins[1])), "torch.bmm"
     from torch.nn.attention import SDPBackend
@@ -1247,6 +1296,7 @@ def model_main_path(dev, lib) -> tuple:
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
 
     kernels = model_kernels()
     rows, cells = [], []
@@ -1257,10 +1307,20 @@ def model_main_path(dev, lib) -> tuple:
             k.launches = 0
         out = run_op(kind, inp, p)
         counts = {n: k.launches for n, k in kernels.items()}
-        # one launch, or two for a split-KV attention call
-        plan = fa.attention_plan(
-            p["B"] * p["H"], p["S"], p["T"], p["d"], p["H"] // p["KV"],
-            torch.bfloat16) if kind == "flash_attention" else {}
+        # one launch, or two for a split-KV attention call; the grouped
+        # matmul on the wgmma route
+        plan = {}
+        if kind == "flash_attention":
+            plan = fa.attention_plan(
+                p["B"] * p["H"], p["S"], p["T"], p["d"], p["H"] // p["KV"],
+                torch.bfloat16)
+        elif kind == "grouped_matmul":
+            plan = gmm.gmm_plan(p["E"], p["C"], p["D"], p["F"],
+                                torch.bfloat16, inp["x"].data_ptr(),
+                                inp["w"].data_ptr())
+            check(plan["route"] == "wgmma", f"{kind} [{cell}]: route "
+                  f"{plan['route']} ({plan['why']}), the design states "
+                  "wgmma")
         want = plan.get("launches", 1)
         check(counts[kind] == want and sum(counts.values()) == want,
               f"{kind} [{cell}]: launches {counts} on one op call, the "
@@ -1288,6 +1348,14 @@ def model_main_path(dev, lib) -> tuple:
                       f"computes another function (err {gqa_err})")
                 gqa_ms = timed_ms(lib, gqa_call)[0]
             del gqa_call
+        wmma_ms = None
+        if kind == "grouped_matmul":
+            wmma = wmma_call(inp)
+            check(torch.allclose(wmma().float(), out.float(), rtol=2e-2,
+                                 atol=2e-2), f"{kind} [{cell}]: the WMMA "
+                  "kernel disagrees with the wgmma kernel")
+            wmma_ms = timed_ms(lib, wmma)[0]
+            del wmma
         p_ms = plain_ms(lambda: run_op(kind, inp, p, backend="torch"))
         bound = model_bound(kind, p, ins, out)
         rows.append({"name": f"{kind}[{cell}]", "route": "cuda",
@@ -1303,12 +1371,19 @@ def model_main_path(dev, lib) -> tuple:
                       "library_waits_for_device": lib_windows == 0,
                       "library_err": lib_err, "library_gqa": gqa_name,
                       "library_gqa_ms": gqa_ms, "library_gqa_err": gqa_err,
-                      **bound})
-        log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}"
-            + (f" (tiles {plan['rows_per_block']} rows x "
-               f"{plan['keys_per_tile']} keys, d padded to "
-               f"{plan['head_dim_padded']}, {plan['splits']} kv splits)"
-               if plan else "")
+                      "wmma_ms": wmma_ms, **bound})
+        if kind == "flash_attention":
+            how = (f" (tiles {plan['rows_per_block']} rows x "
+                   f"{plan['keys_per_tile']} keys, d padded to "
+                   f"{plan['head_dim_padded']}, {plan['splits']} kv splits)")
+        elif kind == "grouped_matmul":
+            how = (f" (route {plan['route']}, tiles {plan['tile'][0]} x "
+                   f"{plan['tile'][1]} x {plan['tile'][2]}, "
+                   f"{plan['tiles']} tiles on {plan['blocks']} blocks, "
+                   f"{plan['waves']:.2f} waves)")
+        else:
+            how = ""
+        log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}" + how
             + f", max abs err {err:.3g} against the plain version (plain "
             f"rms {steps['rms']:.4g}, limit there "
             f"{steps['limit_at_rms']:.3g}, worst err/limit "
@@ -1317,7 +1392,12 @@ def model_main_path(dev, lib) -> tuple:
             f"{100 * bound['bound_ms'] / ms:.1f}%), plain {p_ms:.3f} ms, "
             f"{lib_name} {lib_ms:.4f} ms"
             + (f", {gqa_name} " + (f"{gqa_ms:.4f} ms" if gqa_ms else
-                                   "not timed") if gqa_name else ""))
+                                   "not timed") if gqa_name else "")
+            + (f"; the WMMA kernel {wmma_ms:.4f} ms in this run"
+               + (f" (PERF.md, before the wgmma route: "
+                  f"{WMMA_RECORDED_MS[cell]} ms)"
+                  if cell in WMMA_RECORDED_MS else "")
+               if wmma_ms else ""))
         del inp, out, ins, launch, lib_call
         torch.cuda.empty_cache()
     return rows, cells
@@ -1622,7 +1702,8 @@ def main() -> int:
     model_s = time.time() - t0
     log(f"[model] {len(model_rows)} full-width cells through the ops, each "
         f"launching its kernel as its design states (1, or 2 for a "
-        f"split-KV call) and within 2e-2 and two bf16 steps "
+        f"split-KV call; the grouped matmul on wgmma) and within 2e-2 "
+        f"and two bf16 steps "
         f"(+ 2^-8 rms) of its plain version; "
         f"{zero_rows} query rows without keys exactly 0 ({model_s:.1f} s); "
         f"{smi}")

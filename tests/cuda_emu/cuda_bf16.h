@@ -19,3 +19,10 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     b += 0x7FFFu + ((b >> 16) & 1u);
     return {(uint16_t)(b >> 16)};
 }
+
+struct __nv_bfloat162 {
+    __nv_bfloat16 x, y;
+};
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+    return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
+}

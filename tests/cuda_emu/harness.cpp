@@ -2,12 +2,16 @@
 // (cuda_runtime.h and ptx.h here).
 //
 //   harness rmsnorm f32|bf16 DIR T D RESIDUAL EPS
-//   harness gmm     f32|bf16 DIR E C D F
+//   harness gmm     f32|bf16 DIR E C D F ROUTE BLOCKS
 //   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE GROUP NSPLIT VEC
 //   harness ptx     mma|ldmatrix|ldmatrix_trans|cvt|ex2|cp_async DIR
+//   harness ptx     wgmma|tma|mbarrier DIR
 //
 // Inputs are raw arrays in DIR (x, r, scale, w, q, k, v, a, b, c, m,
-// rows .bin), outputs are written there (y, res, out, d, regs .bin).
+// rows, smem, desc, args, g .bin), outputs are written there (y, res,
+// out, d, regs, log .bin).  gmm runs the kernel of ROUTE (kernel.py
+// GMM_ROUTES: 0 the CUDA-core kernel, 1 WMMA, 2 wgmma fed by TMA, as a
+// persistent grid of BLOCKS blocks).
 // The kernels' sources are the kernel halves of kernels/*/csrc/*.cu,
 // each in its own namespace (rms, gmm, fla), prepared by the test.
 // flash runs the launcher's kernel for the dtype: float32 the CUDA-core
@@ -17,12 +21,15 @@
 #include "cuda_runtime.h"
 #include "ptx.h"
 
+#include <atomic>
+#include <chrono>
 #include <cstdio>
 #include <cstdlib>
 #include <string>
 #include <type_traits>
 
 namespace rms { float row[65536]; }
+namespace gmm { alignas(1024) unsigned char gmm_smem[200 * 1024]; }
 namespace fla {
 float sm[60000];
 alignas(16) unsigned char tc_smem[150000];
@@ -64,19 +71,34 @@ template <class T> int run(char **a) {
         wr("res.bin", rs);
     } else if (k == "gmm") {
         const int E = atoi(a[4]), C = atoi(a[5]), D = atoi(a[6]), F = atoi(a[7]);
+        const int route = atoi(a[8]), blocks = atoi(a[9]);
         auto x = rd<T>("x.bin", (size_t)E * C * D);
         auto w = rd<T>("w.bin", (size_t)E * D * F);
         std::vector<T> o((size_t)E * C * F);
-        // the launcher's choice: bf16 on the WMMA kernel's 128 x 128
-        // tiles, float32 on the CUDA-core kernel's 64 x 64
-        if constexpr (std::is_same<T, float>::value)
+        if constexpr (std::is_same<T, float>::value) {
+            if (route != 0) return 4;
             emu::launch(dim3((F + 63) / 64, (C + 63) / 64, E), 256, [&] {
                 gmm::gmm_kernel(x.data(), w.data(), o.data(), C, D, F);
             });
-        else
+        } else if (route == 1) {
             emu::launch(dim3((F + 127) / 128, (C + 127) / 128, E), 256, [&] {
                 gmm::gmm_bf16_kernel(x.data(), w.data(), o.data(), C, D, F);
             });
+        } else if (route == 2) {
+            // the launcher's maps, through the stand-in encoder
+            CUtensorMap mx, mw;
+            if (gmm::encode_map(cuTensorMapEncodeTiled, &mx, x.data(), E, C,
+                                D, gmm::GM) != CUDA_SUCCESS ||
+                gmm::encode_map(cuTensorMapEncodeTiled, &mw, w.data(), E, D,
+                                F, gmm::GK) != CUDA_SUCCESS)
+                return 5;
+            emu::smem_base = gmm::gmm_smem;
+            emu::launch(dim3(blocks), gmm::GTHREADS, [&] {
+                gmm::gmm_wgmma_kernel(mx, mw, o.data(), E, C, D, F);
+            });
+        } else {
+            return 4;
+        }
         wr("out.bin", o);
     } else {
         const int BH = atoi(a[4]), S = atoi(a[5]), T_ = atoi(a[6]), d = atoi(a[7]);
@@ -206,12 +228,130 @@ int run_ptx(const std::string &what) {
             cp_async_wait<0>();
         });
         wr("dst.bin", dst);
+    } else if (what == "wgmma") {
+        // args: N (64 or 256), scale_d of the first product, trans_b,
+        // products; desc: (da, db) per product; smem: the operands
+        auto args = rd<int>("args.bin", 4);
+        const int N = args[0], nops = args[3];
+        alignas(1024) static unsigned char arena[64 * 1024];
+        auto sm = rd<unsigned char>("smem.bin", sizeof arena);
+        std::memcpy(arena, sm.data(), sizeof arena);
+        emu::smem_base = arena;
+        auto desc = rd<unsigned long long>("desc.bin", 2 * nops);
+        auto cv = rd<float>("c.bin", 128 * N / 2);
+        std::vector<float> dv(128 * N / 2), before(128 * N / 2);
+        auto go = [&](auto n) {
+            constexpr int NN = decltype(n)::value;
+            emu::launch(dim3(1), 128, [&] {
+                const int l = threadIdx.x;
+                float d[NN / 2];
+                for (int i = 0; i < NN / 2; ++i) d[i] = cv[l * NN / 2 + i];
+                wgmma_fence();
+                for (int o = 0; o < nops; ++o)
+                    wgmma_m64nNk16<NN>(d, desc[2 * o], desc[2 * o + 1],
+                                       o > 0 || args[1], args[2]);
+                wgmma_commit();
+                // in flight: the accumulators still hold C
+                for (int i = 0; i < NN / 2; ++i) before[l * NN / 2 + i] = d[i];
+                wgmma_wait<0>();
+                for (int i = 0; i < NN / 2; ++i) dv[l * NN / 2 + i] = d[i];
+            });
+        };
+        if (N == 64) go(std::integral_constant<int, 64>());
+        else if (N == 256) go(std::integral_constant<int, 256>());
+        else return 2;
+        wr("d.bin", dv);
+        wr("before.bin", before);
+    } else if (what == "tma") {
+        // args: E, rows, cols, box_rows, box_cols, swizzle bytes, c0, c1,
+        // c2, destination offset; g: the bf16 (E, rows, cols) tensor
+        auto args = rd<int>("args.bin", 10);
+        const int E = args[0], R = args[1], Cc = args[2];
+        auto g = rd<uint16_t>("g.bin", (size_t)E * R * Cc);
+        alignas(1024) static unsigned char arena[64 * 1024];
+        std::memset(arena, 0xAB, sizeof arena);
+        emu::smem_base = arena;
+        const cuuint64_t dims[3] = {(cuuint64_t)Cc, (cuuint64_t)R,
+                                    (cuuint64_t)E};
+        const cuuint64_t strides[2] = {(cuuint64_t)Cc * 2,
+                                       (cuuint64_t)R * Cc * 2};
+        const cuuint32_t box[3] = {(cuuint32_t)args[4], (cuuint32_t)args[3],
+                                   1};
+        const cuuint32_t unit[3] = {1, 1, 1};
+        CUtensorMap map;
+        std::vector<int> log;
+        log.push_back(cuTensorMapEncodeTiled(
+            &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, g.data(), dims,
+            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            args[5] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+        if (log[0] == CUDA_SUCCESS) {
+            unsigned long long *bar = (unsigned long long *)arena;
+            const unsigned bytes = args[3] * args[4] * 2;
+            emu::launch(dim3(1), 1, [&] {
+                mbar_init(bar, 1);
+                mbar_arrive_expect_tx(bar, bytes);
+                log.push_back(mbar_try_wait_parity(bar, 0));
+                tma_load_3d(arena + args[9], &map, bar, args[6], args[7],
+                            args[8]);
+                log.push_back(mbar_try_wait_parity(bar, 0));
+            });
+        }
+        wr("log.bin", log);
+        wr("dst.bin", std::vector<unsigned char>(arena + 1024,
+                                                 arena + sizeof arena));
+    } else if (what == "mbarrier") {
+        // a scripted sequence on one thread, then three threads blocked on
+        // a phase that a fourth completes late
+        alignas(1024) static unsigned char arena[1024];
+        emu::smem_base = arena;
+        unsigned long long *bar = (unsigned long long *)arena;
+        std::vector<int> log;
+        auto tw = [&](unsigned p) { log.push_back(mbar_try_wait_parity(bar, p)); };
+        emu::launch(dim3(1), 1, [&] {
+            mbar_init(bar, 2);
+            tw(0), tw(1);
+            mbar_arrive(bar);
+            tw(0);
+            mbar_arrive_expect_tx(bar, 96);
+            tw(0);
+            mbar_complete_tx(bar, 64);
+            tw(0);
+            mbar_complete_tx(bar, 32);
+            tw(0), tw(1);
+            mbar_arrive(bar);
+            mbar_arrive(bar);
+            tw(1), tw(0);
+        });
+        std::atomic<int> passed{0};
+        int early = -1, late = -1;
+        emu::launch(dim3(1), 4, [&] {
+            if (threadIdx.x == 0) mbar_init(bar, 1);
+            __syncthreads();
+            if (threadIdx.x > 0) {
+                mbar_wait(bar, 0);
+                ++passed;
+                return;
+            }
+            std::this_thread::sleep_for(std::chrono::milliseconds(100));
+            mbar_arrive_expect_tx(bar, 16);
+            std::this_thread::sleep_for(std::chrono::milliseconds(100));
+            early = passed.load();       // arrivals done, bytes not yet
+            mbar_complete_tx(bar, 16);
+            mbar_wait(bar, 0);
+            while (passed.load() < 3) std::this_thread::yield();
+            late = passed.load();
+        });
+        log.push_back(early);
+        log.push_back(late);
+        wr("log.bin", log);
     } else {
         return 2;
     }
     return 0;
 }
-
 int main(int argc, char **argv) {
     if (argc < 4) return 2;
     dir = argv[3];

@@ -1,7 +1,8 @@
 // CPU twins of the inline-PTX primitives of flash_attention.cu (mma.sync
 // m16n8k16 bf16, ldmatrix x4 plain and transposed, cvt.rn.bf16x2.f32,
 // ex2.approx.ftz.f32, cp.async), which the kernel compiles only where
-// REPRO_PTX_TWINS is not defined.  Each twin follows the PTX ISA's
+// REPRO_PTX_TWINS is not defined; hopper.h, included at the end, twins
+// grouped_matmul.cu's (mbarrier, TMA, wgmma).  Each twin follows the PTX ISA's
 // fragment layout lane by lane, as the warp shuffles of cuda_runtime.h
 // do: every lane writes its registers (or its row address) to a per-warp
 // stage, the warp meets at a barrier, each lane reads its own part of the
@@ -105,3 +106,5 @@ inline void cp_async16(void *dst, const void *src, int src_bytes) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+
+#include "hopper.h"

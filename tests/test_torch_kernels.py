@@ -447,6 +447,54 @@ def test_kv_splits_follow_the_shapes(BH, S, T, d, group, splits, rows,
     assert (f32["splits"], f32["launches"]) == (1, 1)
 
 
+
+@pytest.mark.parametrize("cell,E,C,D,F,ptrs,route,tiles,blocks", [
+    ("olmoe-1b-7b", 64, 640, 2048, 1024, (0, 0), "wgmma", 1280, 132),
+    ("llama4-scout-17b-a16e", 16, 640, 5120, 8192, (0, 0), "wgmma", 2560,
+     132),
+    ("few tiles", 3, 100, 72, 40, (256, 4096), "wgmma", 3, 3),
+    ("F % 8", 1, 128, 48, 130, (0, 0), "wmma", 2, 2),
+    ("D % 8", 2, 64, 36, 64, (0, 0), "wmma", 2, 2),
+    ("x misaligned", 2, 100, 72, 40, (2, 0), "wmma", 2, 2),
+    ("w misaligned", 2, 100, 72, 40, (0, 8), "wmma", 2, 2),
+])
+def test_gmm_plan_routes(cell, E, C, D, F, ptrs, route, tiles, blocks):
+    """bfloat16 goes to wgmma where TMA can describe x and w (rows of a
+    multiple of 16 bytes, 16-byte-aligned bases), as a persistent grid of
+    at most one block per SM over 128 x 256 tiles; otherwise to WMMA, a
+    block per 128 x 128 tile.  One launch either way."""
+    plan = gmm.gmm_plan(E, C, D, F, torch.bfloat16, *ptrs, sms=132)
+    assert (plan["route"], plan["tiles"], plan["blocks"],
+            plan["launches"]) == (route, tiles, blocks, 1)
+    assert plan["tile"] == gmm.GMM_TILES[route]
+    if route == "wgmma":
+        assert plan["stages"] == 4 and plan["waves"] == tiles / 132
+
+
+def test_gmm_plan_float32_and_other_dtypes():
+    plan = gmm.gmm_plan(64, 640, 2048, 1024, torch.float32, sms=132)
+    assert (plan["route"], plan["tile"], plan["tiles"], plan["blocks"],
+            plan["launches"]) == ("cuda cores", (64, 64, 16), 10240, 10240,
+                                  1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gmm.gmm_plan(2, 64, 64, 64, torch.float16)
+
+
+def test_launch_entries_match_the_sources():
+    """Each wrapper's argument codes (``p`` pointer, ``i`` int, ``f``
+    float, the stream left out) are the ``extern "C"`` launcher's
+    parameters, in order: ctypes would otherwise pass wrong values."""
+    for kernel in (rms.KERNEL, gmm.KERNEL, fa.KERNEL):
+        text = kernel.source.read_text()
+        for entry, codes in kernel.entries.items():
+            m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+            assert m, (kernel.name, entry)
+            params = [q.strip() for q in m.group(1).split(",")]
+            assert params[-1] == "void *stream", (entry, params[-1])
+            got = "".join("p" if "*" in q else "f" if q.startswith("float")
+                          else "i" for q in params[:-1])
+            assert got == codes, (entry, got, codes)
+
 def _op_calls(backend=None):
     kw = {} if backend is None else {"backend": backend}
     x = torch.zeros(64, 32)
@@ -507,16 +555,17 @@ def test_unknown_backend_raises():
 
 def test_cuda_sources_call_no_library_kernel():
     """The three kernels are written by hand: their sources include only
-    the CUDA runtime, bf16 and WMMA-intrinsic headers and name no cuBLAS,
-    cuDNN or CUTLASS/CuTe code, and the CUDA wrappers call no torch
-    product or attention."""
+    the CUDA runtime, the driver API's declarations (for tensor maps),
+    bf16 and WMMA-intrinsic headers and name no cuBLAS, cuDNN or
+    CUTLASS/CuTe code, and the CUDA wrappers call no torch product or
+    attention."""
     sources = sorted(PKG.glob("*/csrc/*.cu"))
     assert [p.parent.parent.name for p in sources] == [
         "flash_attention", "grouped_matmul", "rmsnorm"]
     for p in sources:
         text = p.read_text()
         assert set(re.findall(r"#include\s*[<\"]([^>\"]+)", text)) <= {
-            "cuda_runtime.h", "cuda_bf16.h", "mma.h"}, p
+            "cuda.h", "cuda_runtime.h", "cuda_bf16.h", "mma.h"}, p
         assert not re.search(r"cublas|cudnn|cutlass|cute::", text,
                              re.IGNORECASE), p
         assert "__global__" in text and "cudaGetLastError" in text, p

@@ -102,6 +102,51 @@ def test_grouped_matmul_kernel_matches_plain(card, E, C, D, F, bc, bf, bd,
     _close(got, gmm.grouped_matmul_plain(x, w, bc=bc, bf=bf, bd=bd), dtype)
 
 
+def _gmm_route(card, E, C, D, F, route, *, offset=0, seed=3):
+    """bf16 x (E, C, D) and w (E, D, F), each a contiguous view starting
+    ``offset`` elements into its buffer, through the wrapper: the route
+    gmm_plan states, one launch, the plain version's result."""
+    a = samples.kernel_inputs("grouped_matmul", seed, E=E, C=C, D=D, F=F)
+    x, w = (torch.empty(t.size + offset, dtype=torch.bfloat16, device=card)
+            [offset:].view(t.shape).copy_(_on(t, "bfloat16", card))
+            for t in (a["x"], a["w"]))
+    plan = gmm.gmm_plan(E, C, D, F, x.dtype, x.data_ptr(), w.data_ptr())
+    assert plan["route"] == route and plan["launches"] == 1, plan
+    got = _launched(gmm.KERNEL, lambda: gmm.grouped_matmul_cuda(
+        x, w, bc=C, bf=F, bd=D))
+    _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), "bfloat16")
+    return plan
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 200, 200, 296),     # every tile edge: C, D and F ragged, E > 1
+    (2, 300, 520, 264),     # D % 64 == 8: the K tail of each expert
+    (3, 100, 72, 40),       # one tile smaller than the box in C and F
+    (1, 128, 8, 8),         # one k-step of 8
+    (2, 136, 64, 512),
+])
+def test_grouped_matmul_wgmma_route_edges(card, E, C, D, F):
+    _gmm_route(card, E, C, D, F, "wgmma")
+
+
+def test_grouped_matmul_wgmma_more_tiles_than_sms(card):
+    """A persistent grid: each block walks several tiles, the ring wraps
+    across them."""
+    plan = _gmm_route(card, 8, 640, 320, 1024, "wgmma")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert plan["tiles"] == 160 and plan["blocks"] == min(160, sms)
+
+
+@pytest.mark.parametrize("E,C,D,F,offset", [
+    (1, 128, 48, 130, 0),     # F % 8 != 0: no TMA row stride
+    (2, 64, 36, 64, 0),       # D % 8 != 0
+    (2, 100, 72, 40, 1),      # a view 2 bytes past 16-byte alignment
+])
+def test_grouped_matmul_wmma_route(card, E, C, D, F, offset):
+    """Operands TMA cannot describe take the WMMA kernel, by plan."""
+    _gmm_route(card, E, C, D, F, "wmma", offset=offset)
+
+
 # ---------------------------------------------------------------------------
 # B5 flash attention
 # ---------------------------------------------------------------------------

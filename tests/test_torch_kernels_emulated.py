@@ -5,15 +5,20 @@ There is no ``nvcc`` and no card here, so the CUDA kernels of
 kernel halves (everything before the ``extern "C"`` launchers) build as
 host C++ against ``tests/cuda_emu/``: a stand-in runtime that runs each
 CUDA thread of a block as a ``std::thread``, with barriers for
-``__syncthreads`` and the warp shuffles, and ``ptx.h``, CPU twins of the
-inline PTX of flash attention's tensor-core kernel (``mma.sync``,
-``ldmatrix``, ``cvt.rn.bf16x2``, ``ex2.approx``, ``cp.async``) that
-follow the PTX ISA's fragment layouts lane by lane; each twin is also
-held against a plain matrix product, rounding, power or copy here.  The kernels' own index
-arithmetic, tiling, masking, reductions and roundings then run on the
-CPU, at small shapes that cross their tiles' edges, and are held
-against the plain versions with the reference's tolerance (rtol = atol
-= 2e-5 in float32, 2e-2 in bfloat16).  What only the card can show
+``__syncthreads``, the warp shuffles and the warpgroups, and CPU twins
+of the inline PTX: ``ptx.h`` for flash attention's tensor-core kernel
+(``mma.sync``, ``ldmatrix``, ``cvt.rn.bf16x2``, ``ex2.approx``,
+``cp.async``) and ``hopper.h`` for the grouped matmul's ``wgmma``
+kernel (``wgmma.mma_async`` read through its shared-memory descriptors,
+its fence, commit and wait; the 3-D TMA tile load with its swizzle and
+zero fill; ``mbarrier`` arrivals, transaction counts and parity waits
+that block across the threads), all after the PTX ISA's layouts.  Each
+twin is also held here against a plain matrix product, rounding, power
+or copy built from the ISA's documented layout.  The kernels' own index
+arithmetic, tiling, masking, pipelines, reductions and roundings then
+run on the CPU, at small shapes that cross their tiles' edges, and are
+held against the plain versions with the reference's tolerance (rtol =
+atol = 2e-5 in float32, 2e-2 in bfloat16).  What only the card can show
 (that ``nvcc`` accepts the source, launch limits, shared-memory sizes,
 the speed) is ``tests/test_torch_kernels_cuda.py``'s and
 ``chip_smoke.py``'s.
@@ -62,7 +67,8 @@ def harness(tmp_path_factory):
         name = Path(src).stem + ".inc"
         (out / name).write_text(kernel_half((CSRC / src).read_text(), ns))
     exe = out / "harness"
-    r = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMU),
+    r = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-Wno-psabi",
+                        "-I", str(EMU),
                         "-I", str(out), str(EMU / "harness.cpp"), "-o",
                         str(exe)], capture_output=True, text=True,
                        timeout=300)
@@ -124,16 +130,53 @@ def test_rmsnorm_kernel_code(harness, T, D, with_residual, dtype):
     assert torch.equal(got["res"], res)
 
 
+def _gmm(harness, E, C, D, F, dtype, route=None, blocks=2):
+    """The launcher's kernel for ``route`` (gmm_plan's by default, with
+    a persistent grid of at most ``blocks`` blocks) against the plain
+    version."""
+    a = samples.kernel_inputs("grouped_matmul", 0, E=E, C=C, D=D, F=F)
+    x = torch.from_numpy(a["x"]).to(DTYPES[dtype])
+    w = torch.from_numpy(a["w"]).to(DTYPES[dtype])
+    plan = gmm.gmm_plan(E, C, D, F, x.dtype, sms=blocks)
+    route = plan["route"] if route is None else route
+    got = harness("gmm", x.dtype, {"x": x, "w": w},
+                  (E, C, D, F, gmm.GMM_ROUTES[route], plan["blocks"]),
+                  {"out": (E, C, F)})["out"]
+    _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), dtype)
+    return plan
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,D,F", [(2, 64, 64, 64), (3, 100, 72, 40),
                                      (1, 128, 48, 130)])
 def test_grouped_matmul_kernel_code(harness, E, C, D, F, dtype):
-    a = samples.kernel_inputs("grouped_matmul", 0, E=E, C=C, D=D, F=F)
-    x = torch.from_numpy(a["x"]).to(DTYPES[dtype])
-    w = torch.from_numpy(a["w"]).to(DTYPES[dtype])
-    got = harness("gmm", x.dtype, {"x": x, "w": w}, (E, C, D, F),
-                  {"out": (E, C, F)})["out"]
-    _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), dtype)
+    """The kernel gmm_plan picks: float32 the CUDA-core kernel, bfloat16
+    wgmma where TMA describes the operands, else WMMA."""
+    _gmm(harness, E, C, D, F, dtype)
+
+
+@pytest.mark.parametrize("E,C,D,F,blocks", [
+    (2, 200, 200, 296, 3),      # C, D and F each cross a tile edge
+    (2, 300, 520, 264, 3),      # D % 64 == 8: each expert's K tail
+    (3, 100, 72, 40, 2),        # C and F inside one tile
+    (1, 128, 8, 8, 1),          # one k-step of 8
+    (2, 136, 64, 512, 1),       # one block walks all 8 tiles
+])
+def test_grouped_matmul_wgmma_kernel_code(harness, E, C, D, F, blocks):
+    """The wgmma kernel with fewer blocks than tiles: each block walks
+    several tiles and the 4-stage ring wraps across them.  The copies
+    past C, D or F are zero-filled by the 3-D maps, never the next
+    expert's rows (test_hopper_tma_twin holds the zero fill)."""
+    plan = _gmm(harness, E, C, D, F, "bfloat16", "wgmma", blocks)
+    assert plan["route"] == "wgmma"
+    assert plan["blocks"] == min(blocks, plan["tiles"])
+
+
+@pytest.mark.parametrize("E,C,D,F", [(2, 64, 64, 64), (3, 100, 72, 40)])
+def test_grouped_matmul_wmma_kernel_code(harness, E, C, D, F):
+    """The WMMA kernel, which gmm_plan keeps for operands TMA cannot
+    describe, also at shapes the wgmma kernel takes."""
+    _gmm(harness, E, C, D, F, "bfloat16", "wmma")
 
 
 def _flash(harness, q, k, v, *, causal=True, window=0, group=1, nsplit=1):
@@ -328,3 +371,162 @@ def test_ptx_cp_async_twin(harness):
                np.uint8, 512).reshape(32, 16)
     want = np.where((nbytes == 16)[:, None], src, 0)
     np.testing.assert_array_equal(dst, want)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper twins (hopper.h), against the PTX ISA's layouts
+# ---------------------------------------------------------------------------
+
+def _swizzle(addr, span: int):
+    """Address bits 4.. XORed with bits 7.. (span 32, 64 or 128 bytes)."""
+    if span < 32:
+        return addr
+    return addr ^ (((addr >> 7) & (span // 16 - 1)) << 4)
+
+
+def _desc(start: int, lbo: int, sbo: int, span: int) -> int:
+    """A wgmma shared-memory descriptor, field by field as the ISA lays
+    it out: start, LBO and SBO in 16-byte units in bits 0-13, 16-29 and
+    32-45, the layout (1: 128-byte swizzle, 0: none) in bits 62-63."""
+    layout = {128: 1, 64: 2, 32: 3, 16: 0}[span]
+    return ((start >> 4) & 0x3FFF) | ((lbo >> 4) & 0x3FFF) << 16 \
+        | ((sbo >> 4) & 0x3FFF) << 32 | layout << 62
+
+
+def _accumulator_cells(n: int):
+    """(thread, register) -> (row, column) of a 64 x n wgmma
+    accumulator: register i of lane 4 g + t in warp w is row 16 w + g +
+    8 ((i % 4) // 2), column 8 (i // 4) + 2 t + i % 2."""
+    tid = np.arange(128)[:, None]
+    i = np.arange(n // 2)[None, :]
+    rows = 16 * (tid // 32) + (tid % 32) // 4 + 8 * ((i % 4) // 2)
+    cols = 8 * (i // 4) + 2 * (tid % 4) + i % 2
+    return rows, cols
+
+
+def _place(smem: np.ndarray, addrs: np.ndarray, bits: np.ndarray) -> None:
+    smem.view(np.uint16)[addrs.ravel() // 2] = bits.ravel()
+
+
+def _wgmma_case(case: str, rng):
+    """Shared memory, descriptors, N, trans_b and the operands of one
+    wgmma run, laid out by the ISA's canonical layouts."""
+    smem = np.zeros(64 * 1024, np.uint8)
+    if case == "swizzled":
+        # A 64 x 64 K-major as TMA writes a 128-byte swizzled box (row r at
+        # r * 128); B 64 x 256 MN-major as four 64-column boxes at 8 KiB
+        # (row k at k * 128 within a box); four k-steps as the kernel
+        # issues them, A's start 32 bytes and B's 2 KiB further each step
+        K, N = 64, 256
+        A = samples.bf16_round(rng.standard_normal((64, K)))
+        B = samples.bf16_round(rng.standard_normal((K, N)))
+        r, k = np.meshgrid(np.arange(64), np.arange(K), indexing="ij")
+        _place(smem, _swizzle(r * 128 + 2 * k, 128), _bf16_bits(A))
+        k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+        _place(smem, _swizzle(8192 + n // 64 * 8192 + k * 128 + 2 * (n % 64),
+                              128), _bf16_bits(B))
+        desc = [(_desc(32 * s, 16, 1024, 128),
+                 _desc(8192 + 2048 * s, 8192, 1024, 128)) for s in range(4)]
+        return smem, desc, N, 1, A, B
+    # no swizzle, both K-major: 8 x 16-byte core matrices; A's second 8
+    # of k at LBO 128, its groups of 8 rows at SBO 256; B's (rows n) at
+    # LBO 1024 and SBO 128
+    K, N = 16, 64
+    A = samples.bf16_round(rng.standard_normal((64, K)))
+    B = samples.bf16_round(rng.standard_normal((K, N)))
+    r, k = np.meshgrid(np.arange(64), np.arange(K), indexing="ij")
+    _place(smem, r % 8 * 16 + r // 8 * 256 + k % 8 * 2 + k // 8 * 128,
+           _bf16_bits(A))
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    _place(smem, 4096 + n % 8 * 16 + n // 8 * 128 + k % 8 * 2 + k // 8 * 1024,
+           _bf16_bits(B))
+    return smem, [(_desc(0, 128, 256, 16), _desc(4096, 1024, 128, 16))], \
+        N, 0, A, B
+
+
+@pytest.mark.parametrize("case,scale_d", [("swizzled", 1), ("plain", 0)])
+def test_hopper_wgmma_twin(harness, case, scale_d):
+    """wgmma m64nNk16 for a warpgroup: A and B read through descriptors
+    (128-byte swizzle with A K-major and B MN-major through the
+    transpose bit, as grouped_matmul.cu issues it; and no swizzle, both
+    K-major), D = A B (+ C when scale_d) in the accumulator layout, and
+    nothing written before wait_group retires the group."""
+    rng = np.random.default_rng(4)
+    smem, desc, N, trans_b, A, B = _wgmma_case(case, rng)
+    c = rng.standard_normal((128, N // 2)).astype(np.float32)
+    work = harness.workdir()
+    smem.tofile(work / "smem.bin")
+    np.array(desc, np.uint64).tofile(work / "desc.bin")
+    np.array([N, scale_d, trans_b, len(desc)], np.int32).tofile(
+        work / "args.bin")
+    c.tofile(work / "c.bin")
+    harness.raw("ptx", "wgmma", work)
+    d = np.fromfile(work / "d.bin", np.float32).reshape(128, N // 2)
+    before = np.fromfile(work / "before.bin", np.float32).reshape(128, N // 2)
+    np.testing.assert_array_equal(before, c)
+    rows, cols = _accumulator_cells(N)
+    want = (A.astype(np.float64) @ B)[rows, cols] + (c if scale_d else 0)
+    np.testing.assert_allclose(d, want, rtol=1e-5, atol=1e-4)
+
+
+def _tma(harness, g, rows, cols, swizzle, coords):
+    work = harness.workdir()
+    g.tofile(work / "g.bin")
+    E, R, Cc = g.shape
+    np.array([E, R, Cc, rows, cols, swizzle, *coords, 1024],
+             np.int32).tofile(work / "args.bin")
+    harness.raw("ptx", "tma", work)
+    return (np.fromfile(work / "log.bin", np.int32),
+            np.fromfile(work / "dst.bin", np.uint8))
+
+
+@pytest.mark.parametrize("swizzle,rows,coords", [
+    (128, 16, (32, 60, 1)),     # past the columns and the rows of expert 1
+    (128, 8, (0, 66, 2)),       # the last expert's last rows: zeros after
+    (0, 8, (8, 3, 0)),          # inside, no swizzle
+])
+def test_hopper_tma_twin(harness, swizzle, rows, coords):
+    """A 3-D box (64 columns x rows x 1 expert) of a bf16 (E, R, C)
+    tensor into shared memory at a 1 KiB boundary: element (i1, i0) at
+    byte (i1 * 64 + i0) * 2 of the box, then the 128-byte swizzle on the
+    address bits; zeros wherever the box leaves the tensor (never the
+    next expert's rows); the box's bytes complete the barrier's phase."""
+    rng = np.random.default_rng(5)
+    E, R, Cc = 3, 70, 72
+    g = rng.integers(1, 1 << 16, (E, R, Cc), dtype=np.uint16)
+    log, dst = _tma(harness, g, rows, 64, swizzle, coords)
+    np.testing.assert_array_equal(log, [0, 0, 1])
+    c0, c1, c2 = coords
+    box = np.zeros((rows, 64), np.uint16)
+    inner = g[c2, c1:c1 + rows, c0:c0 + 64]
+    box[:inner.shape[0], :inner.shape[1]] = inner
+    off = np.arange(rows * 64 * 2)
+    want = np.empty(off.size, np.uint8)
+    want[_swizzle(1024 + off, swizzle) - 1024] = box.view(np.uint8).ravel()
+    np.testing.assert_array_equal(dst[:off.size], want)
+
+
+@pytest.mark.parametrize("cols,box_cols,swizzle", [
+    (70, 64, 128),      # a row of 140 bytes: not a multiple of 16
+    (72, 72, 128),      # a box row of 144 bytes: wider than the swizzle
+])
+def test_hopper_tensor_map_limits(harness, cols, box_cols, swizzle):
+    """The stand-in encoder refuses what cuTensorMapEncodeTiled does."""
+    g = np.ones((2, 8, cols), np.uint16)
+    log, _ = _tma(harness, g, 8, box_cols, swizzle, (0, 0, 0))
+    np.testing.assert_array_equal(log, [1])
+
+
+def test_hopper_mbarrier_twin(harness):
+    """A phase completes when its arrivals and its transaction bytes are
+    all in; try_wait.parity(p) is true once the phase of parity p is
+    complete; waiters block until then, across threads."""
+    work = harness.workdir()
+    harness.raw("ptx", "mbarrier", work)
+    log = np.fromfile(work / "log.bin", np.int32)
+    # init 2: parity 0 open, parity 1 (the phase before) complete; one
+    # arrival; arrive.expect_tx 96; 64 bytes; 32 bytes: phase 0 complete,
+    # phase 1 open; two arrivals: phase 1 complete; then three waiters
+    # still blocked after the arrival (bytes pending), all three through
+    # after the bytes
+    np.testing.assert_array_equal(log, [0, 1, 0, 0, 0, 1, 0, 1, 0, 0, 3])
