@@ -79,7 +79,28 @@ Phases (any failure exits non-zero and prints no result line):
    call's (``F.rms_norm``, ``torch.bmm``, SDPA with the backend its
    dispatcher picks named), the grouped matmul's also beside the WMMA
    kernel's on the same inputs; rows without keys exactly 0 at a
-   model's width.  Nothing in the phase is caught.
+   model's width.  Before the cells, the operand dtypes the reference
+   takes beyond one of float32 or bfloat16 (mixed, and float16): at the
+   test shapes each kernel within its output dtype's tolerance of its
+   plain version, with the launches each call made and the route its
+   plan names (RMSNorm a dtype code per operand; the grouped matmul and
+   attention widened to float32 for their float32 kernels).  Nothing in
+   the phase is caught;
+11. host tiers and the observability plane — ``have_cc()``, the compiler
+   it found and the tier ``auto`` resolves to; every shipped policy on
+   ``jit``, ``native`` and ``auto`` identical to ``interp`` on phase 3's
+   seeded maps and ctx samples (ret, ctx, every map byte), native as
+   machine code wherever ``have_cc()`` holds; phase 5's closed loop on
+   ``CollectiveDispatcher(tier="native")`` and ``(tier="jit")``, every
+   decision and final map byte identical to interp's and cuda's, with
+   every kernel's launch count set to 0 before and still 0 after; the
+   host-clock ``decide()`` p50/p99 of native, jit, cuda and interp and
+   the ``runtime.invoke`` p50/p99 of the Table 1 policies on jit and
+   native, beside the host CPU's model (``lscpu``); a ``FlightRecorder``
+   on phase 5's cuda runtime (the profiler suite attached) over 2,000
+   more decisions, its ``Exporter`` lines valid by the exporter's own
+   validator, its histogram counting every decision, and both equal to
+   the same run's on interp.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -239,12 +260,11 @@ def closed_loop(tier: str, n: int, seed: int = 11) -> dict:
     """The §5.3 closed loop on ``tier``: ``n`` decisions with profiler
     feeds between them and a warm ``link.replace()`` half way."""
     from repro_torch.collectives import CollectiveDispatcher
-    from repro_torch.core import PolicyRuntime
     from repro_torch.policies import (adapt_profiler, adapt_tuner,
                                       bucket_profiler, bucket_tuner)
 
-    rt = PolicyRuntime(tier=tier)
-    disp = CollectiveDispatcher(runtime=rt)
+    disp = CollectiveDispatcher(tier=tier)
+    rt = disp.runtime
     tune = rt.attach(bucket_tuner.program, priority=0)
     rt.attach(adapt_tuner.program, priority=1)
     rt.attach(adapt_profiler.program)
@@ -851,7 +871,7 @@ def nccl_one_rank(device) -> dict:
 
 HBM_BYTES_PER_S = 3.35e12   # NVIDIA H100 SXM data sheet (700 W)
 BF16_OPS_PER_S = 989e12     # dense bf16, the same data sheet
-MODEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MODEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # The full-width cells are also held element by element to what a bf16
 # output can differ by when the kernel and its plain version compute in
 # f32 and differ only in summation order: two bf16 steps of the plain
@@ -1038,6 +1058,100 @@ def model_test_shapes(dev) -> dict:
                       "flash_attention: a row without keys is not 0")
     torch.cuda.synchronize()
     return worst
+
+
+# operand dtypes the reference's kernels take besides one of float32 or
+# bfloat16 throughout (ROADMAP C7): x (q) in the first, the other
+# operands in the second
+OPERAND_MIXES = (("bfloat16", "float32"), ("float32", "bfloat16"),
+                 ("float16", "float16"), ("float16", "bfloat16"))
+
+
+def model_operand_dtypes(dev) -> dict:
+    """Each CUDA kernel against its plain version on mixed and float16
+    operands at the CPU tests' shapes, at the output dtype's tolerance,
+    with the launches each call made and the route its plan names:
+    RMSNorm reads each operand in its own dtype, the grouped matmul and
+    attention widen to float32 for their float32 kernels."""
+    import torch
+
+    import torch_samples as samples
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.grouped_matmul import kernel as gmm
+    from repro_torch.kernels.rmsnorm import kernel as rms
+
+    DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+    def on(a, dt):
+        return torch.from_numpy(a).to(dev).to(DT[dt])
+
+    def launched(kernel, n, call):
+        before = kernel.launches
+        out = call()
+        torch.cuda.synchronize()
+        check(kernel.launches - before == n, f"{kernel.name}: "
+              f"{kernel.launches - before} launches, the plan says {n}")
+        return out
+
+    worst = {"fused_rmsnorm": 0.0, "grouped_matmul": 0.0,
+             "flash_attention": 0.0}
+    routes = {}
+    for xdt, odt in OPERAND_MIXES:
+        tag = f"{xdt} x {odt}"
+        a = samples.kernel_inputs("rmsnorm", 0, T=256, D=512,
+                                  with_residual=True)
+        x, r, sc = on(a["x"], xdt), on(a["residual"], odt), \
+            on(a["scale"], odt)
+        e = kernel_matches_plain(
+            f"fused_rmsnorm {tag}", xdt,
+            launched(rms.KERNEL, 1,
+                     lambda: rms.fused_rmsnorm_cuda(x, sc, r, bt=128)),
+            rms.fused_rmsnorm_plain(x, sc, r, bt=128))
+        worst["fused_rmsnorm"] = max(worst["fused_rmsnorm"], e)
+        routes[f"fused_rmsnorm {tag}"] = "dtype code per operand"
+
+        E, C, D, F = 4, 128, 256, 128
+        a = samples.kernel_inputs("grouped_matmul", 0, E=E, C=C, D=D, F=F)
+        x, w = on(a["x"], xdt), on(a["w"], odt)
+        plan = gmm.gmm_plan(E, C, D, F, x.dtype, x.data_ptr(), w.data_ptr(),
+                            w_dtype=w.dtype)
+        check(plan["route"] == "cuda cores" and plan["upcast"],
+              f"grouped_matmul {tag}: route {plan['route']}")
+        kw = dict(bc=64, bf=64, bd=128)
+        e = kernel_matches_plain(
+            f"grouped_matmul {tag}", xdt,
+            launched(gmm.KERNEL, 1,
+                     lambda: gmm.grouped_matmul_cuda(x, w, **kw)),
+            gmm.grouped_matmul_plain(x, w, **kw))
+        worst["grouped_matmul"] = max(worst["grouped_matmul"], e)
+        routes[f"grouped_matmul {tag}"] = "float32 (widened), cuda cores"
+
+        for BH, g, S, T, d, kw in (
+                (3, 1, 128, 256, 128, dict(bq=64, bk=128)),
+                (4, 2, 96, 160, 64, dict(bq=96, bk=160, window=40))):
+            a = samples.kernel_inputs("flash_attention", 0,
+                                      q_shape=(BH, S, d),
+                                      kv_shape=(BH // g, T, d))
+            q, k, v = on(a["q"], xdt), on(a["k"], odt), on(a["v"], odt)
+            plan = fa.attention_plan(BH, S, T, d, g, q.dtype, k.dtype,
+                                     v.dtype)
+            check(plan["kernel"] == "cuda cores" and plan["upcast"],
+                  f"flash_attention {tag}: kernel {plan['kernel']}")
+            got = launched(fa.KERNEL, plan["launches"],
+                           lambda: fa.flash_attention_cuda(q, k, v, group=g,
+                                                           **kw))
+            kx, vx = (t.repeat_interleave(g, dim=0) for t in (k, v))
+            e = kernel_matches_plain(
+                f"flash_attention {tag} S={S} T={T} d={d} group={g}", xdt,
+                got, fa.flash_attention_plain(q, kx, vx, **kw))
+            worst["flash_attention"] = max(worst["flash_attention"], e)
+        routes[f"flash_attention {tag}"] = "float32 (widened), cuda cores"
+    # bfloat16 alone keeps its tensor-core routes
+    check(gmm.gmm_plan(4, 128, 256, 128, torch.bfloat16)["route"] == "wgmma"
+          and fa.attention_plan(3, 128, 256, 128, 1, torch.bfloat16)[
+              "kernel"] == "tensor cores", "bf16 left its tensor-core route")
+    return {"max_abs_err": worst, "routes": routes}
 
 
 def cell_inputs(kind: str, p: dict, seed: int, dev) -> dict:
@@ -1424,6 +1538,161 @@ def zero_rows_at_width(dev) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the host tiers and the observability plane
+# ---------------------------------------------------------------------------
+
+# the Table 1 policies, as benchmarks/table1_overhead.py runs them
+TABLE1 = ("noop", "static_override", "size_aware", "adaptive_channels",
+          "latency_feedback", "bandwidth_probe", "slo_enforcer")
+INVOKE_CHUNK = 1_000    # runtime.invoke calls per timed chunk
+INVOKE_CHUNKS = 40      # chunks per (policy, tier): p50/p99 over them
+N_RECORDED = 2_000      # decisions the flight recorder watches
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, vendor, family and model numbers and
+    CPU count as ``lscpu`` gives them, with ``/proc/cpuinfo``'s model
+    name beside them (a sandboxed host may report the name as
+    "unknown"; the family and model numbers still name the part)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines()
+                  if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    check("Model name" in fields, "lscpu gave no model name")
+    with open("/proc/cpuinfo") as f:
+        proc = sorted({line.split(":", 1)[1].strip() for line in f
+                       if line.startswith("model name")})
+    return (f"lscpu: {fields['Model name']} ({fields.get('Vendor ID', '?')}"
+            f" family {fields.get('CPU family', '?')} model "
+            f"{fields.get('Model', '?')}, {fields.get('CPU(s)', '?')} CPUs); "
+            f"/proc/cpuinfo: {', '.join(proc) or 'no model name'}")
+
+
+def host_tier_identity(prog, seed: int) -> dict:
+    """``prog`` on ``jit``, ``native`` and ``auto`` against ``interp``,
+    each runtime on its own maps seeded as phase 3 seeds them, over phase
+    3's ctx samples: ret, ctx bytes and every map byte after every
+    sample.  Native must be machine code wherever ``have_cc()`` holds."""
+    import numpy as np
+
+    import torch_samples as samples
+    from repro_torch.core import PolicyRuntime
+    from repro_torch.core.cc import get_meta, have_cc
+
+    legs = {}
+    for tier in ("interp", "jit", "native", "auto"):
+        rt = PolicyRuntime(tier=tier)
+        fn = rt.load(prog).fn
+        rng = np.random.default_rng(seed)       # as samples.make_maps
+        for d in prog.maps:
+            samples.fill_map(rt.maps.get(d.name), rng)
+        legs[tier] = (fn, rt)
+    codegen = {t: get_meta(fn).get("codegen") or fn.__bpf_codegen__
+               for t, (fn, _) in legs.items() if t != "interp"}
+    check(codegen["jit"] == "v2", f"{prog.name}: jit ran {codegen['jit']}")
+    if have_cc():
+        for t in ("native", "auto"):
+            check(codegen[t] == "native",
+                  f"{prog.name}: {t} ran {codegen[t]}, not machine code")
+    rng = np.random.default_rng(seed + 1)
+    for i in range(N_SAMPLES):
+        buf = samples.make_ctx(prog, rng)
+        got = {}
+        for tier, (fn, rt) in legs.items():
+            b = bytearray(buf)
+            ret = fn(b)
+            got[tier] = (ret, bytes(b), {
+                d.name: rt.maps.get(d.name).to_device().tobytes()
+                for d in prog.maps})
+        for tier, g in got.items():
+            check(g == got["interp"], f"{prog.name}: {tier} differs from "
+                  f"interp at sample {i}")
+    return codegen
+
+
+def invoke_ns(fn, reps: int = INVOKE_CHUNKS, chunk: int = INVOKE_CHUNK):
+    """p50 and p99 over ``reps`` chunks of ``chunk`` calls of ``fn()``,
+    ns per call on the host clock."""
+    for _ in range(chunk):
+        fn()
+    per = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn()
+        per.append((time.perf_counter_ns() - t0) / chunk)
+    return pct(per, 50), pct(per, 99)
+
+
+def table1_latency(tiers) -> dict:
+    """Per-decision host time of each Table 1 policy on each of
+    ``tiers``: ``runtime.invoke`` (chain, stats, guards) p50/p99 and the
+    loaded program alone p50, maps seeded as the reference's benchmark
+    seeds them."""
+    from repro_torch.core import PolicyRuntime, make_ctx
+    from repro_torch.policies import table1 as T
+
+    out = {}
+    for name in TABLE1:
+        for tier in tiers:
+            rt = PolicyRuntime(tier=tier)
+            fn = rt.load(getattr(T, name).program).fn
+            for m in map(rt.maps.get, rt.maps.names()):
+                m.update_u64(0, 1_000, slot=0)
+                if m.value_size >= 16:
+                    m.update_u64(0, 8, slot=1)
+            ctx = make_ctx("tuner", msg_size=8 << 20, comm_id=0, n_ranks=8,
+                           max_channels=32)
+            p50, p99 = invoke_ns(lambda: rt.invoke("tuner", ctx))
+            fn_p50, _ = invoke_ns(lambda: fn(ctx.buf))
+            out[f"{name} {tier}"] = {"invoke_p50_ns": p50,
+                                     "invoke_p99_ns": p99,
+                                     "fn_p50_ns": fn_p50}
+    return out
+
+
+def recorder_run(run: dict, n: int = N_RECORDED) -> dict:
+    """A :class:`FlightRecorder` on a closed-loop run's runtime, with the
+    profiler suite (latency histogram, straggler trap) attached beside
+    its profilers; ``n`` more decisions of the main path's traffic, each
+    followed by its profiler feed, exported as JSON lines every 500.
+    The export must pass the exporter's validator and the histogram must
+    count every decision."""
+    import io
+
+    from repro_torch.obs import Exporter, FlightRecorder
+    from repro_torch.obs.exporter import validate_export
+    from repro_torch.policies import profiler as prof
+
+    rt, disp = run["rt"], run["disp"]
+    for i, p in enumerate(prof.PROFILER_POLICIES):
+        rt.attach(p.program, priority=10 + i)
+    rec = FlightRecorder(rt, capacity=256)
+    buf = io.StringIO()
+    ex = Exporter(rec, stream=buf)
+    for i, (coll, size, axis, lat) in enumerate(traffic(n, seed=11)):
+        d = disp.decide(coll, size, 8, axis_name=axis)
+        feed(disp, d, lat)
+        if (i + 1) % 500 == 0:
+            ex.snapshot()
+    ex.snapshot()
+    lines = buf.getvalue().splitlines()
+    bad = validate_export(lines)
+    check(not bad, f"the exporter's lines fail its validator: {bad[:3]}")
+    recs = [json.loads(line) for line in lines]
+    hist = [r for r in recs if r["kind"] == "histogram"]
+    check(hist and hist[-1]["total"] == n and sum(rec.histogram()) == n,
+          f"the recorder counted {hist[-1]['total'] if hist else None} "
+          f"decisions of {n}")
+    stragglers = [r for r in recs if r["kind"] == "straggler"]
+    check(len(stragglers) == rec.events_seen > 0,
+          f"{len(stragglers)} straggler lines for {rec.events_seen} events")
+    return {"lines": len(lines), "histogram": rec.histogram(),
+            "stragglers": stragglers, "counters": rec.counters()}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1696,6 +1965,15 @@ def main() -> int:
         f"and bfloat16, each kernel within tolerance of its plain version "
         f"on the card: " + ", ".join(f"{k} max abs err {v:.3g}"
                                      for k, v in small.items()))
+    mixed = model_operand_dtypes(dev)
+    log(f"[model dtypes] mixed and float16 operands (ROADMAP C7), "
+        f"{len(OPERAND_MIXES)} mixes a kernel at the test shapes, each "
+        f"within its output dtype's tolerance of its plain version on the "
+        f"card, launches as planned: " + ", ".join(
+            f"{k} max abs err {v:.3g}"
+            for k, v in mixed["max_abs_err"].items())
+        + "; routes: " + "; ".join(f"{k}: {v}"
+                                   for k, v in mixed["routes"].items()))
     model_rows, model_cells = model_main_path(dev, lib)
     table.extend(model_rows)
     zero_rows = zero_rows_at_width(dev)
@@ -1707,6 +1985,72 @@ def main() -> int:
         f"(+ 2^-8 rms) of its plain version; "
         f"{zero_rows} query rows without keys exactly 0 ({model_s:.1f} s); "
         f"{smi}")
+
+    # ---- 11. the host tiers and the observability plane --------------------
+    from repro_torch.core import cc
+    t0 = time.time()
+    have_cc = cc.have_cc()
+    auto_tier = PolicyRuntime(tier="auto").tier
+    cpu = host_cpu()
+    if have_cc:
+        log(f"[host tiers] have_cc() True: the native tier builds with "
+            f"{' '.join(cc._CC)}; tier='auto' resolves to {auto_tier}")
+    else:
+        log("[host tiers] have_cc() False: no C toolchain on this machine; "
+            "tier='native' runs the jit closure and no native number is "
+            "reported")
+    codegen = {p.program.name: host_tier_identity(p.program, seed=100 + i)
+               for i, p in enumerate(ALL_POLICIES)}
+    # the host tiers launch no kernel: every count set to 0 before their
+    # closed loops and read after
+    counted = (list(kernels) + [b.kernel for b in cuda_run["bridges"]]
+               + list(model_kernels().values()))
+    for k in counted:
+        k.launches = 0
+        if hasattr(k, "launches32"):
+            k.launches32 = 0
+    host_runs = {t: closed_loop(t, N_DECISIONS) for t in ("native", "jit")}
+    host_launches = sum(k.launches + getattr(k, "launches32", 0)
+                        for k in counted)
+    check(host_launches == 0,
+          f"{host_launches} kernel launches on the host tiers")
+    for t, r in host_runs.items():
+        check(r["decisions"] == interp_run["decisions"]
+              == cuda_run["decisions"],
+              f"{t} decisions differ from interp's and cuda's")
+        check(r["maps"] == interp_run["maps"] == cuda_run["maps"],
+              f"{t} final map bytes differ from interp's and cuda's")
+    timed = ("native", "jit") if have_cc else ("jit",)
+    dec_lat = {t: {"p50_us": pct(r["times_ns"], 50) / 1e3,
+                   "p99_us": pct(r["times_ns"], 99) / 1e3}
+               for t, r in ([(t, host_runs[t]) for t in timed]
+                            + [("cuda", cuda_run), ("interp", interp_run)])}
+    log(f"[host tiers] every shipped policy on jit, native and auto "
+        f"identical to interp over phase 3's samples (ret, ctx, every map "
+        f"byte); {N_DECISIONS} closed-loop decisions on "
+        f"CollectiveDispatcher(tier='native') and (tier='jit') identical "
+        f"to interp and cuda (decisions and final maps), 0 kernel "
+        f"launches; decide() " + "; ".join(
+            f"{t} p50 {v['p50_us']:.2f} us p99 {v['p99_us']:.2f} us"
+            for t, v in dec_lat.items()) + f"; host CPU {cpu}; {smi}")
+    t1 = table1_latency(timed)
+    log("[table1] ns per decision on the host clock, runtime.invoke p50 / "
+        "p99 (the loaded program alone p50): " + "; ".join(
+            f"{k} {v['invoke_p50_ns']:.0f} / {v['invoke_p99_ns']:.0f} "
+            f"({v['fn_p50_ns']:.0f})" for k, v in t1.items())
+        + f"; host CPU {cpu}; {smi}")
+    obs = {t: recorder_run(r) for t, r in (("cuda", cuda_run),
+                                            ("interp", interp_run))}
+    check(obs["cuda"]["histogram"] == obs["interp"]["histogram"]
+          and obs["cuda"]["stragglers"] == obs["interp"]["stragglers"],
+          "the flight recorder saw other events on cuda than on interp")
+    host_s = time.time() - t0
+    log(f"[obs] FlightRecorder on the phase-5 cuda runtime: {N_RECORDED} "
+        f"decisions counted by the latency histogram, "
+        f"{len(obs['cuda']['stragglers'])} straggler records, "
+        f"{obs['cuda']['lines']} JSON lines valid by the exporter's own "
+        f"validator; histogram and records identical to interp's "
+        f"({host_s:.1f} s for the phase)")
 
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
@@ -1725,9 +2069,17 @@ def main() -> int:
                               "nccl": nccl},
               "model_kernels": {"build_s": model_build_s,
                                 "test_shapes_max_abs_err": small,
+                                "operand_dtypes": mixed,
                                 "cells": model_cells,
                                 "zero_rows": zero_rows,
                                 "seconds": model_s},
+              "host_tiers": {"have_cc": have_cc,
+                             "compiler": cc._CC, "auto": auto_tier,
+                             "host_cpu": cpu, "codegen": codegen,
+                             "decide_us": dec_lat, "table1_ns": t1,
+                             "recorder": {k: v for k, v in obs["cuda"].items()
+                                          if k != "stragglers"},
+                             "seconds": host_s},
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

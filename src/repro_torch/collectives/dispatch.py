@@ -229,6 +229,8 @@ class CollectiveDispatcher:
     def __init__(self, runtime: Optional[PolicyRuntime] = None,
                  config: Optional[DispatchConfig] = None,
                  tier: Optional[str] = None):
+        # tier="auto" resolves to the fastest available host tier
+        # (native when a C toolchain is present, else the v2 JIT);
         # explicit runtime wins over tier; with neither, the process-wide
         # runtime (tier="cuda") decides
         if runtime is None and tier is not None:

@@ -1,0 +1,1126 @@
+"""Native host tier: verified bytecode -> machine code via the system C
+toolchain.
+
+The analogue of bpftime's LLVM JIT, on the metal this time.  The paper's
+headline number — 80–130 ns per tuner decision — is out of reach for any
+CPython-bytecode tier because the interpreter's dispatch loop alone costs
+more than that.  This tier removes the interpreter from the hot path: each
+verified program is lowered to one C function, compiled with ``cc -O2`` at
+load time, and bound as a **CPython extension method** (``METH_O`` /
+``METH_FASTCALL``), whose call overhead (~40 ns) is an order of magnitude
+below a ``ctypes`` trampoline (~215 ns measured on this container).
+
+Lowering model
+--------------
+Same artifacts, third consumer: the generator walks the shared CFG
+(:mod:`repro_torch.core.cfg`) and the verifier's region analysis exactly like the
+v2 JIT does, and mirrors its structured reconstruction — post-dominator
+nested ``if``/``else`` regions, natural loops as real ``while (1)`` with
+``continue``/``break``.  Shapes the structured emitter does not model fall
+back to a label-per-block ``goto`` skeleton (C has goto; the Python tier
+needed a dispatcher loop), so no program is ever rejected for shape.
+
+* Registers are ``uint64_t`` locals; the compiler allocates them.
+* The 512-byte stack is a fixed uninitialized frame on the C stack (the
+  verifier proves no uninitialized read).
+* Pointers are **real addresses**: ctx is the live ``bytearray`` buffer of
+  the caller, map values are the live slot buffers, the frame is ``fr``.
+  No region table, no encoded pointers, no bounds checks — all cost was
+  paid at load time (the paper's T1 tension, resolved the same way).
+* Array-family map helpers compile to direct loads/stores through a pinned
+  **slot directory** (:meth:`repro_torch.core.maps.ArrayMap.native_view`): a
+  contiguous ``u64[max_entries]`` table of slot base addresses per map.
+  Lookup is one bounds check + one table load; ``ema_update`` is an inline
+  128-bit RMW.  Mutations set a per-map dirty bit; the exit path bumps
+  each dirty map's native version cell with one machine increment
+  (``BpfMap._native_bumps``, summed into ``BpfMap.version``) so the
+  device-bridge version contract holds with no Python on the path.
+* ``get_prandom_u32`` is an inline xorshift64* advancing the SAME state
+  cell Python's ``helpers._PRNG_STATE`` wraps — interleaved tiers draw
+  one stream.
+* Everything else (hash/LRU/ring buffer maps, ``trace_printk``, and
+  *every* helper when a fault injector is armed) goes through one Python
+  callback ``cb(site_pc, r1..r5) -> u64``, whose per-site handlers
+  replicate the VM's helper semantics bit for bit — including
+  ``faults.fire`` points, so the fault-containment matrix holds on this
+  tier.  Hash/LRU lookups serve repeat keys from an identity-validated
+  export cache (value cells are stable bytearrays mutated by
+  slice-assign), so steady-state lookups skip the ctypes export.  A
+  raised helper exception propagates natively (the C function returns
+  NULL), after flushing dirty-map version bumps.
+
+Because the generated C is address-free (all bindings arrive as call
+arguments), compiled objects are cached by source hash: reloading or
+hot-swapping a program the toolchain has already seen skips ``cc``
+entirely and rebinds in microseconds (the warm ``link.replace()`` path
+measured in ``benchmarks/hot_reload.py``).
+
+No toolchain, no tier: :func:`have_cc` probes for a working compiler once;
+``runtime.PolicyRuntime(tier="native")`` falls back to the v2 JIT closure
+when the probe fails, so ``tier="auto"`` is always safe to request.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+import sysconfig
+import tempfile
+import threading
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
+
+from . import faults as _faults
+from . import helpers as H
+from .cfg import CFG
+from .isa import (FP_REG, Insn, STACK_SIZE, alu_base, alu_width, is_alu,
+                  is_imm_form, is_jump_cond, is_load, is_store, jump_base,
+                  mem_size, s64)
+from .maps import BpfMap
+from .program import Program
+
+M64 = (1 << 64) - 1
+M32 = 0xFFFFFFFF
+S64_MIN = -(1 << 63)
+
+_UNSIGNED_CMP = {"jeq": "==", "jne": "!=", "jgt": ">", "jge": ">=",
+                 "jlt": "<", "jle": "<="}
+_SIGNED_CMP = {"jsgt": ">", "jsge": ">=", "jslt": "<", "jsle": "<="}
+_NEG = {"==": "!=", "!=": "==", ">": "<=", ">=": "<", "<": ">=", "<=": ">"}
+_INT_T = {1: "uint8_t", 2: "uint16_t", 4: "uint32_t", 8: "u64"}
+
+
+class NativeCompileError(Exception):
+    """The system toolchain rejected (or cannot build) the generated C."""
+
+
+# ---------------------------------------------------------------------------
+# toolchain probe
+# ---------------------------------------------------------------------------
+
+_CC_LOCK = threading.Lock()
+_CC: Optional[List[str]] = None
+_CC_PROBED = False
+
+
+def _include_dir() -> str:
+    return sysconfig.get_path("include") or sysconfig.get_config_var(
+        "INCLUDEPY") or "/usr/include"
+
+
+def _probe_cc() -> Optional[List[str]]:
+    """Find a compiler that can actually build a CPython extension."""
+    candidates: List[List[str]] = []
+    env_cc = os.environ.get("CC")
+    if env_cc:
+        candidates.append(env_cc.split())
+    candidates += [["cc"], ["gcc"], ["clang"]]
+    src = ("#include <Python.h>\n"
+           "PyMODINIT_FUNC PyInit__repro_cc_probe(void) { return NULL; }\n")
+    for argv in candidates:
+        if shutil.which(argv[0]) is None:
+            continue
+        with tempfile.TemporaryDirectory(prefix="repro-cc-probe-") as td:
+            c = os.path.join(td, "probe.c")
+            so = os.path.join(td, "probe.so")
+            with open(c, "w") as f:
+                f.write(src)
+            try:
+                r = subprocess.run(
+                    argv + ["-O2", "-fPIC", "-shared", "-w",
+                            f"-I{_include_dir()}", "-o", so, c],
+                    capture_output=True, timeout=60)
+            except (OSError, subprocess.TimeoutExpired):
+                continue
+            if r.returncode == 0 and os.path.exists(so):
+                return argv
+    return None
+
+
+def have_cc() -> bool:
+    """True iff a working C toolchain for extension builds is available.
+
+    Probed once per process; tests gate the native differential legs on
+    this so tier-1 stays green on compiler-less hosts."""
+    global _CC, _CC_PROBED
+    with _CC_LOCK:
+        if not _CC_PROBED:
+            _CC = _probe_cc()
+            _CC_PROBED = True
+        return _CC is not None
+
+
+# ---------------------------------------------------------------------------
+# compiled-object cache (keyed by generated source, which is address-free)
+# ---------------------------------------------------------------------------
+
+_WORKDIR: Optional[str] = None
+_MOD_CACHE: Dict[str, object] = {}
+_CACHE_LOCK = threading.Lock()
+_STATS = {"compiles": 0, "cache_hits": 0}
+
+
+def cache_stats() -> Dict[str, int]:
+    """Compile vs warm-rebind counters (hot-swap amortization evidence)."""
+    with _CACHE_LOCK:
+        return dict(_STATS)
+
+
+def _workdir() -> str:
+    global _WORKDIR
+    if _WORKDIR is None:
+        _WORKDIR = tempfile.mkdtemp(prefix="repro-bpfnat-")
+    return _WORKDIR
+
+
+def _build_module(placeholder_src: str):
+    """Compile + import the extension for ``placeholder_src``, cached.
+
+    The source is generated with a ``@MOD@`` name placeholder so the hash
+    (and therefore the cache key) is independent of the module name derived
+    from it."""
+    h = hashlib.sha256(placeholder_src.encode()).hexdigest()
+    name = f"_bpfnat_{h[:16]}"
+    with _CACHE_LOCK:
+        mod = _MOD_CACHE.get(h)
+        if mod is not None:
+            _STATS["cache_hits"] += 1
+            return mod
+        if not have_cc():  # pragma: no cover — callers gate on have_cc
+            raise NativeCompileError("no C toolchain available")
+        src = placeholder_src.replace("@MOD@", name)
+        wd = _workdir()
+        c_path = os.path.join(wd, f"{name}.c")
+        so_path = os.path.join(wd, f"{name}.so")
+        with open(c_path, "w") as f:
+            f.write(src)
+        r = subprocess.run(
+            _CC + ["-O2", "-fPIC", "-shared", "-w", f"-I{_include_dir()}",
+                   "-o", so_path, c_path],
+            capture_output=True, timeout=120)
+        if r.returncode != 0:
+            raise NativeCompileError(
+                f"cc failed ({r.returncode}): "
+                f"{r.stderr.decode(errors='replace')[:2000]}")
+        spec = importlib.util.spec_from_file_location(name, so_path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _STATS["compiles"] += 1
+        _MOD_CACHE[h] = mod
+        return mod
+
+
+# ---------------------------------------------------------------------------
+# C code generator (mirrors the v2 JIT's structured reconstruction)
+# ---------------------------------------------------------------------------
+
+class _StructAbort(Exception):
+    """Structured reconstruction exceeded its budget or hit a shape it
+    does not model; the goto skeleton takes over."""
+
+
+def _u64c(x: int) -> str:
+    return f"0x{x & M64:x}ULL"
+
+
+def _s64c(x: int) -> str:
+    """Render a signed 64-bit constant as portable C."""
+    v = s64(x & M64)
+    if v == S64_MIN:
+        return "(-9223372036854775807LL - 1)"
+    return f"{v}LL" if v >= 0 else f"(-{-v}LL)"
+
+
+def _direct_eligible(m: BpfMap) -> bool:
+    """Maps whose helpers compile to direct slot-directory access.
+
+    Restricted to array-family maps with >= 8-byte values: per-cpu storage
+    is thread-dependent, hash/LRU/ringbuf need their Python structures,
+    and sub-8-byte array slots can be *grown* by the VM's ema slice-assign
+    — pinning them would turn that grow into a BufferError for every
+    tier sharing the map."""
+    return m.kind in ("array", "perdev_array") and m.value_size >= 8
+
+
+def _fn_table(prog: Program, vinfo) -> List[Tuple[int, List[Insn], object]]:
+    """``(base, insns, fninfo)`` per function — main first, then every
+    ``call_fn`` callee.  ``base`` is a cumulative pc offset so helper
+    call sites stay uniquely keyed across functions (the Python callback
+    dispatches on the *global* pc)."""
+    fns = list(getattr(vinfo, "fns", None) or [vinfo])
+    bodies = [list(prog.insns)] + [list(sp.insns) for sp in prog.subprogs]
+    out: List[Tuple[int, List[Insn], object]] = []
+    base = 0
+    for i, body in enumerate(bodies):
+        out.append((base, body, fns[i]))
+        base += len(body)
+    return out
+
+
+class _CGen:
+    def __init__(self, prog: Program, vinfo, resolved: Dict[str, BpfMap]):
+        self.prog = prog
+        self.vinfo = vinfo
+        self.resolved = resolved
+        self.fn_list = _fn_table(prog, vinfo)
+        # per-function emission state (set by generate() for each function)
+        self.base, self.insns, self.fninfo = self.fn_list[0]
+        self.in_sub = False
+        self.blocks = getattr(self.fninfo, "cfg", None) or CFG(self.insns)
+        self.lines: List[str] = []
+        self.indent = 1
+        self._loops: List[Tuple[int, int]] = []
+        self._budget = 0
+        if len(prog.maps) > 63:
+            raise NativeCompileError("more than 63 maps (dirty bitmask)")
+        self.map_index = {d.name: i for i, d in enumerate(prog.maps)}
+        # call sites the callback must serve (all of them: fired mode
+        # routes every helper through Python so fault points fire),
+        # keyed by global pc across every function
+        self.call_pcs = sorted(
+            base + pc
+            for base, body, fi in self.fn_list
+            for pc, insn in enumerate(body)
+            if insn.op == "call" and pc in fi.call_map)
+        # subprog-bearing programs always take the callback wrapper so the
+        # call_fn fault-injection point stays observable from Python
+        self.pure = not self.call_pcs and not prog.subprogs
+        # direct maps, in call-site order -> Env member position
+        self.direct_maps: List[str] = []
+        for base, body, fi in self.fn_list:
+            for pc, insn in enumerate(body):
+                if insn.op != "call" or pc not in fi.call_map:
+                    continue
+                mname = fi.call_map[pc]
+                m = resolved.get(mname) if mname else None
+                if m is not None and _direct_eligible(m) \
+                        and mname not in self.direct_maps:
+                    self.direct_maps.append(mname)
+        self.direct_arg = {n: i for i, n in enumerate(self.direct_maps)}
+        # prandom lowers to inline xorshift64* against the shared Python
+        # PRNG cell (address passed as an argument) unless an injector
+        # is armed
+        self.uses_prandom = any(
+            insn.op == "call" and pc in fi.call_map
+            and H.HELPERS[insn.imm].name == "get_prandom_u32"
+            for base, body, fi in self.fn_list
+            for pc, insn in enumerate(body))
+        # maps whose dirty bit can be set this program: verified stores
+        # through map-value pointers plus direct update/ema sites, in any
+        # function.  Each gets a version-cell argument the exit path bumps
+        # with one C increment — no Python callback on the mutation-report
+        # path.
+        didx = set()
+        for base, body, fi in self.fn_list:
+            for pc, insn in enumerate(body):
+                if is_store(insn.op):
+                    info = fi.mem_info.get(pc)
+                    if info is not None \
+                            and info[0] not in ("ctx", "stack") \
+                            and info[1] in self.map_index:
+                        didx.add(self.map_index[info[1]])
+                elif insn.op == "call" and pc in fi.call_map:
+                    hname = H.HELPERS[insn.imm].name
+                    mname = fi.call_map[pc]
+                    m = resolved.get(mname) if mname else None
+                    if hname in ("map_update_elem", "ema_update") \
+                            and m is not None and _direct_eligible(m):
+                        didx.add(self.map_index[mname])
+        self.dirty_idx = sorted(didx)
+        self.dirty_maps = [prog.maps[i].name for i in self.dirty_idx]
+
+    # ---- emission plumbing ------------------------------------------------
+    def w(self, line: str) -> None:
+        self.lines.append("    " * self.indent + line)
+
+    def _exit_stmt(self) -> str:
+        if self.in_sub:
+            return "return r0;"
+        return ("return PyLong_FromUnsignedLongLong(r0);" if self.pure
+                else "goto done;")
+
+    # ---- expression helpers ----------------------------------------------
+    def _dir(self, mname: str) -> str:
+        return f"((u64 *)(uintptr_t)E->D{self.direct_arg[mname]})"
+
+    def _cond(self, insn: Insn) -> Tuple[str, str]:
+        base = jump_base(insn.op)
+        a = f"r{insn.dst}"
+        if base in _SIGNED_CMP:
+            b = _s64c(insn.imm) if is_imm_form(insn.op) \
+                else f"(long long)r{insn.src}"
+            op = _SIGNED_CMP[base]
+            return (f"(long long){a} {op} {b}",
+                    f"(long long){a} {_NEG[op]} {b}")
+        if base in _UNSIGNED_CMP:
+            b = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
+            op = _UNSIGNED_CMP[base]
+            return f"{a} {op} {b}", f"{a} {_NEG[op]} {b}"
+        b = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
+        return f"({a} & {b}) != 0", f"({a} & {b}) == 0"
+
+    # ---- per-insn emission ------------------------------------------------
+    def emit_body_insn(self, pc: int, insn: Insn) -> None:
+        op = insn.op
+        w = self.w
+        if op == "lddw":
+            w(f"r{insn.dst} = {_u64c(insn.imm)};")
+            return
+        if op == "ldmap":
+            idx = [d.name for d in self.prog.maps].index(insn.map_name)
+            w(f"r{insn.dst} = {_u64c((0x7F00 + idx) << 48)};")
+            return
+        if op == "call":
+            self._emit_call(pc, insn)
+            return
+        if op == "call_fn":
+            self._emit_call_fn(pc, insn)
+            return
+        if is_alu(op):
+            self._emit_alu(insn)
+            return
+        if is_load(op):
+            self._emit_load(pc, insn)
+            return
+        if is_store(op):
+            self._emit_store(pc, insn)
+            return
+        raise AssertionError(f"unhandled body op {op}")
+
+    def _emit_alu(self, insn: Insn) -> None:
+        base = alu_base(insn.op)
+        width = alu_width(insn.op)
+        d = f"r{insn.dst}"
+        w = self.w
+        if width == 64:
+            s = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
+            if base == "mov":
+                w(f"{d} = {s};")
+            elif base == "neg":
+                w(f"{d} = (u64)0 - {d};")
+            elif base in ("add", "sub", "mul", "div", "mod",
+                          "and", "or", "xor"):
+                sym = {"add": "+", "sub": "-", "mul": "*", "div": "/",
+                       "mod": "%", "and": "&", "or": "|", "xor": "^"}[base]
+                w(f"{d} = {d} {sym} {s};")
+            elif base in ("lsh", "rsh"):
+                sym = "<<" if base == "lsh" else ">>"
+                k = str(insn.imm & 63) if is_imm_form(insn.op) \
+                    else f"({s} & 63)"
+                w(f"{d} = {d} {sym} {k};")
+            elif base == "arsh":
+                k = str(insn.imm & 63) if is_imm_form(insn.op) \
+                    else f"({s} & 63)"
+                w(f"{d} = (u64)((long long){d} >> {k});")
+            else:
+                raise AssertionError(base)
+            return
+        # 32-bit: operate on u32 views, zero-extend the result (VM parity)
+        s = f"0x{insn.imm & M32:x}U" if is_imm_form(insn.op) \
+            else f"(uint32_t)r{insn.src}"
+        a = f"(uint32_t){d}"
+        if base == "mov":
+            w(f"{d} = (u64)(uint32_t)({s});")
+        elif base == "neg":
+            w(f"{d} = (u64)(uint32_t)(0U - {a});")
+        elif base in ("add", "sub", "mul", "div", "mod", "and", "or", "xor"):
+            sym = {"add": "+", "sub": "-", "mul": "*", "div": "/",
+                   "mod": "%", "and": "&", "or": "|", "xor": "^"}[base]
+            w(f"{d} = (u64)(uint32_t)({a} {sym} {s});")
+        elif base in ("lsh", "rsh"):
+            sym = "<<" if base == "lsh" else ">>"
+            k = str(insn.imm & 31) if is_imm_form(insn.op) \
+                else f"({s} & 31)"
+            w(f"{d} = (u64)(uint32_t)({a} {sym} {k});")
+        elif base == "arsh":
+            k = str(insn.imm & 31) if is_imm_form(insn.op) \
+                else f"({s} & 31)"
+            w(f"{d} = (u64)(uint32_t)((int32_t){a} >> {k});")
+        else:
+            raise AssertionError(base)
+
+    def _emit_load(self, pc: int, insn: Insn) -> None:
+        if self.fninfo.mem_info.get(pc) is None:
+            self.w(f"r{insn.dst} = 0; /* unreachable */")
+            return
+        n = mem_size(insn.op)
+        t = _INT_T[n]
+        self.w(f"{{ {t} _t; memcpy(&_t, (const void *)(uintptr_t)"
+               f"(r{insn.src} + {_u64c(insn.off)}), {n}); "
+               f"r{insn.dst} = _t; }}")
+
+    def _emit_store(self, pc: int, insn: Insn) -> None:
+        info = self.fninfo.mem_info.get(pc)
+        if info is None:
+            self.w("; /* unreachable store */")
+            return
+        n = mem_size(insn.op)
+        t = _INT_T[n]
+        val = f"r{insn.src}" if insn.op.startswith("stx") \
+            else _u64c(insn.imm & ((1 << (8 * n)) - 1))
+        self.w(f"{{ {t} _t = ({t})({val}); memcpy((void *)(uintptr_t)"
+               f"(r{insn.dst} + {_u64c(insn.off)}), &_t, {n}); }}")
+        # the verifier proved which map this store writes through; flag it
+        # so the exit-path callback bumps the content version
+        if info[0] not in ("ctx", "stack") and info[1] in self.map_index:
+            self.w(f"E->dirty |= {_u64c(1 << self.map_index[info[1]])};")
+
+    # ---- helper calls -----------------------------------------------------
+    def _cb(self, pc: int) -> List[str]:
+        # pc is function-local: the callback dispatches on base + pc so
+        # sites in different functions never collide
+        gpc = self.base + pc
+        return [
+            f"{{ PyObject *_res = PyObject_CallFunction(E->cb, \"KKKKKK\", "
+            f"(u64){gpc}ULL, r1, r2, r3, r4, r5);",
+            "  if (_res == NULL) goto fail;",
+            "  r0 = PyLong_AsUnsignedLongLong(_res); Py_DECREF(_res);",
+            "  if (r0 == (u64)-1 && PyErr_Occurred()) goto fail; }",
+        ]
+
+    def _emit_cb(self, pc: int) -> None:
+        for ln in self._cb(pc):
+            self.w(ln)
+
+    def _emit_fired_gate(self, pc: int, direct: List[str]) -> None:
+        """`if (fired) { python path } else { direct path }` — fault
+        injection needs every helper observable from Python."""
+        self.w("if (E->fired) {")
+        self.indent += 1
+        self._emit_cb(pc)
+        self.indent -= 1
+        self.w("} else {")
+        self.indent += 1
+        for ln in direct:
+            self.w(ln)
+        self.indent -= 1
+        self.w("}")
+
+    def _emit_call_fn(self, pc: int, insn: Insn) -> None:
+        """bpf-to-bpf call: a sibling static C function with its own
+        frame.  In fired mode the Python callback runs first so the
+        call-entry fault point is observable (it may raise); the native
+        call then produces the real result."""
+        w = self.w
+        w("if (E->fired) {")
+        self.indent += 1
+        self._emit_cb(pc)
+        self.indent -= 1
+        w("}")
+        w(f"r0 = bpf_fn{insn.imm}(E, r1, r2, r3, r4, r5);")
+        w("if (E->err) goto fail;")
+        w("r1 = 0; r2 = 0; r3 = 0; r4 = 0; r5 = 0;")
+
+    def _emit_call(self, pc: int, insn: Insn) -> None:
+        h = H.HELPERS[insn.imm]
+        w = self.w
+        if pc not in self.fninfo.call_map:
+            w("r0 = 0; /* unreachable call */")
+            return
+        name = h.name
+        if name == "ktime_get_ns":
+            self._emit_fired_gate(pc, [
+                "{ struct timespec _ts; clock_gettime(CLOCK_MONOTONIC, "
+                "&_ts); r0 = (u64)_ts.tv_sec * 1000000000ULL + "
+                "(u64)_ts.tv_nsec; }"])
+        elif name == "get_prandom_u32":
+            # inline xorshift64* advancing the SAME state cell Python's
+            # helpers._PRNG_STATE wraps, so interleaved tiers draw one
+            # stream.  Bits 32..63 of the low-64 product equal the same
+            # bits of Python's full-width product — return identical.
+            self._emit_fired_gate(pc, [
+                "{ u64 *_ps = (u64 *)(uintptr_t)E->PR; u64 _x = *_ps;",
+                "  _x ^= _x >> 12; _x ^= _x << 25; _x ^= _x >> 27;",
+                "  *_ps = _x;",
+                "  r0 = (_x * 0x2545F4914F6CDD1DULL >> 32) "
+                "& 0xffffffffULL; }"])
+        elif name == "trace_printk":
+            self._emit_cb(pc)
+        else:
+            mname = self.fninfo.call_map[pc]
+            m = self.resolved.get(mname) if mname else None
+            if m is None or not _direct_eligible(m):
+                self._emit_cb(pc)
+            else:
+                self._emit_fired_gate(pc, self._direct_map_op(name, m))
+        w("r1 = 0; r2 = 0; r3 = 0; r4 = 0; r5 = 0;")
+
+    def _direct_map_op(self, hname: str, m: BpfMap) -> List[str]:
+        dirp = self._dir(m.name)
+        bit = _u64c(1 << self.map_index[m.name])
+        mx = m.max_entries
+        vs = m.value_size
+        if hname == "map_lookup_elem":
+            return [f"{{ uint32_t _k; memcpy(&_k, (const void *)(uintptr_t)"
+                    f"r2, 4); r0 = (_k < {mx}U) ? {dirp}[_k] : 0; }}"]
+        if hname == "map_update_elem":
+            return [f"{{ uint32_t _k; memcpy(&_k, (const void *)(uintptr_t)"
+                    f"r2, 4);",
+                    f"  if (_k < {mx}U) {{ memmove((void *)(uintptr_t)"
+                    f"{dirp}[_k], (const void *)(uintptr_t)r3, {vs}); "
+                    f"dirty |= {bit}; r0 = 0; }}",
+                    "  else r0 = 0xffffffffffffffffULL; }"]
+        if hname == "map_delete_elem":
+            # array maps cannot delete (kernel -EINVAL)
+            return ["r0 = 0xffffffffffffffffULL;"]
+        if hname == "ema_update":
+            # exact VM arithmetic: the product fits u128, the quotient
+            # fits u64, so the 128-bit RMW is bit-identical to the VM's
+            # big-int path (incl. out-of-range keys: no write, r0 = s/w)
+            return [
+                f"{{ uint32_t _k; memcpy(&_k, (const void *)(uintptr_t)"
+                f"r2, 4);",
+                "  u64 _w = r4 > 1 ? r4 : 1;",
+                f"  if (_k < {mx}U) {{",
+                f"    void *_sp = (void *)(uintptr_t){dirp}[_k];",
+                "    u64 _old; memcpy(&_old, _sp, 8);",
+                "    u64 _nv = (u64)(((unsigned __int128)_old * (_w - 1) "
+                "+ r3) / _w);",
+                f"    memcpy(_sp, &_nv, 8); dirty |= {bit}; r0 = _nv;",
+                "  } else r0 = r3 / _w; }"]
+        raise AssertionError(f"no direct lowering for {hname}")
+
+    # ---- block/terminator emission ---------------------------------------
+    def _block_term(self, bi: int):
+        start, end = self.blocks.ranges[bi]
+        insns = self.insns
+        last = insns[end - 1]
+        body_end = end - 1 if (last.op in ("exit", "ja")
+                               or is_jump_cond(last.op)) else end
+        for pc in range(start, body_end):
+            self.emit_body_insn(pc, insns[pc])
+        if last.op == "exit":
+            return ("exit",)
+        if last.op == "ja":
+            return ("ja", self.blocks.succs[bi][0])
+        if is_jump_cond(last.op):
+            cond, ncond = self._cond(last)
+            t, f = self.blocks.succs[bi]
+            return ("cond", cond, ncond, t, f)
+        return ("fall", bi + 1)
+
+    # ---- structured emission (ports _GenV2.emit_structured) --------------
+    def emit_structured(self) -> None:
+        self._budget = max(4 * self.blocks.n, 64)
+        self._loops = []
+        self._chain(0, CFG.EXIT, 0)
+
+    def _loop_ctl(self, b: int) -> Optional[str]:
+        if not self._loops:
+            return None
+        h, ex = self._loops[-1]
+        if b == h:
+            return "continue;"
+        if b == ex:
+            return "break;"
+        for oh, oex in self._loops[:-1]:
+            if b in (oh, oex):
+                raise _StructAbort  # multi-level break/continue
+        return None
+
+    def _enter_loop(self, b: int, depth: int) -> int:
+        L = self.blocks.loops[b]
+        targets = set(L.exit_targets)
+        if len(targets) != 1:
+            raise _StructAbort
+        ex = targets.pop()
+        self.w("while (1) {")
+        self._loops.append((b, ex))
+        self.indent += 1
+        self._chain(b, None, depth + 1, entering=True)
+        self.indent -= 1
+        self._loops.pop()
+        self.w("}")
+        return ex
+
+    def _chain(self, b: int, end: Optional[int], depth: int,
+               entering: bool = False) -> None:
+        bl = self.blocks
+        while b != end:
+            if b == CFG.EXIT or depth > 40 or self.indent > 50:
+                raise _StructAbort
+            self._budget -= 1
+            if self._budget < 0:
+                raise _StructAbort
+            if not entering:
+                ctl = self._loop_ctl(b)
+                if ctl is not None:
+                    self.w(ctl)
+                    return
+                if b in bl.loops:
+                    if any(h == b for h, _ in self._loops):
+                        raise _StructAbort  # re-entering an active loop
+                    b = self._enter_loop(b, depth)
+                    continue
+            entering = False
+            term = self._block_term(b)
+            kind = term[0]
+            if kind == "exit":
+                self.w(self._exit_stmt())
+                return
+            if kind in ("ja", "fall"):
+                b = term[1]
+                continue
+            _, cond, ncond, t, f = term
+            t_ctl, f_ctl = self._loop_ctl(t), self._loop_ctl(f)
+            if t_ctl or f_ctl:
+                if t_ctl and f_ctl:
+                    self.w(f"if ({cond}) {{ {t_ctl} }}")
+                    self.w(f_ctl)
+                    return
+                if t_ctl:
+                    self.w(f"if ({cond}) {{ {t_ctl} }}")
+                    b = f
+                else:
+                    self.w(f"if ({ncond}) {{ {f_ctl} }}")
+                    b = t
+                continue
+            m = bl.ncpd(t, f)
+            if t == m and f == m:
+                b = m  # conditions are side-effect free: branch is a no-op
+                continue
+            if t == m:
+                self.w(f"if ({ncond}) {{")
+                self._arm(f, m, depth + 1)
+                self.w("}")
+            elif f == m:
+                self.w(f"if ({cond}) {{")
+                self._arm(t, m, depth + 1)
+                self.w("}")
+            else:
+                self.w(f"if ({cond}) {{")
+                self._arm(t, m, depth + 1)
+                self.w("} else {")
+                self._arm(f, m, depth + 1)
+                self.w("}")
+            if m == CFG.EXIT:
+                return  # both arms returned
+            b = m
+
+    def _arm(self, b: int, end: int, depth: int) -> None:
+        self.indent += 1
+        self._chain(b, end, depth)
+        self.indent -= 1
+
+    # ---- goto skeleton (always-correct fallback) -------------------------
+    def emit_goto(self) -> None:
+        """Label-per-block lowering.  C has real ``goto``, so the shapes
+        the structured pass aborts on (multi-exit loops, cross-loop
+        edges, duplication blowups) need no dispatcher here."""
+        def jump(target: int) -> str:
+            return self._exit_stmt() if target == CFG.EXIT \
+                else f"goto B{target};"
+        for bi in range(self.blocks.n):
+            self.lines.append(f"B{bi}: ;")
+            term = self._block_term(bi)
+            kind = term[0]
+            if kind == "exit":
+                self.w(self._exit_stmt())
+            elif kind in ("ja", "fall"):
+                t = term[1] if kind == "ja" else self.blocks.succs[bi][0]
+                self.w(jump(t))
+            else:
+                _, cond, _, t, f = term
+                self.w(f"if ({cond}) {{ {jump(t)} }}")
+                self.w(jump(f))
+
+    # ---- whole-function assembly -----------------------------------------
+    def _gen_fn_body(self, fn_idx: int) -> Tuple[List[str], bool]:
+        """Emit one function's body into fresh lines (structured when the
+        shape allows, goto skeleton otherwise)."""
+        self.base, self.insns, self.fninfo = self.fn_list[fn_idx]
+        self.in_sub = fn_idx > 0
+        self.blocks = getattr(self.fninfo, "cfg", None) or CFG(self.insns)
+        self.lines = []
+        self.indent = 1
+        structured = True
+        try:
+            self.emit_structured()
+        except _StructAbort:
+            self.lines.clear()
+            self.indent = 1
+            structured = False
+            self.emit_goto()
+        return self.lines, structured
+
+    def _sub_sig(self, i: int) -> str:
+        return (f"static u64 bpf_fn{i}(Env *E, u64 r1, u64 r2, u64 r3, "
+                "u64 r4, u64 r5)")
+
+    def generate(self) -> Tuple[str, bool]:
+        """Return (source with @MOD@ placeholder, structured?)."""
+        structured = True
+        subs_text: List[str] = []
+        # callees first (index 1+ in fn_list); forward-declared so any
+        # DAG order of call_fn targets links
+        for i in range(len(self.prog.subprogs)):
+            body_i, st = self._gen_fn_body(1 + i)
+            structured = structured and st
+            subs_text += [
+                self._sub_sig(i) + " {",
+                "    u64 r0 = 0, r6 = 0, r7 = 0, r8 = 0, r9 = 0;",
+                f"    unsigned char fr[{STACK_SIZE}];",
+                f"    u64 r10 = (u64)(uintptr_t)(fr + {STACK_SIZE});",
+            ] + body_i + [
+                # helper-callback failure inside a callee: flag the shared
+                # Env and unwind; every call_fn site checks E->err
+                "fail:",
+                "    E->err = 1;",
+                "    return 0;",
+                "}",
+                "",
+            ]
+        body, st = self._gen_fn_body(0)
+        structured = structured and st
+
+        nd = len(self.direct_maps)
+        nv = len(self.dirty_idx)
+        npr = 1 if self.uses_prandom else 0
+        # ctx, fired, dirs..., version cells..., [prng cell], cb
+        nargs = 3 + nd + nv + npr
+        head: List[str] = [
+            "#include <Python.h>",
+            "#include <stdint.h>",
+            "#include <string.h>",
+            "#include <time.h>",
+            "typedef unsigned long long u64;",
+            "",
+        ]
+        if not self.pure:
+            # shared per-invocation bindings, threaded through bpf-to-bpf
+            # calls so callees reach the callback / dirty mask / slot
+            # directories without globals (reentrant by construction)
+            members = ["long fired;", "PyObject *cb;", "u64 dirty;",
+                       "int err;"]
+            members += [f"u64 D{i};" for i in range(nd)]
+            if self.uses_prandom:
+                members.append("u64 PR;")
+            head += ["typedef struct { " + " ".join(members) + " } Env;",
+                     ""]
+            head += [self._sub_sig(i) + ";"
+                     for i in range(len(self.prog.subprogs))]
+            if self.prog.subprogs:
+                head.append("")
+        head += subs_text
+        pro: List[str] = []
+        if self.pure:
+            head += ["static PyObject *bpf_run(PyObject *self, "
+                     "PyObject *arg) {"]
+            pro += ["    if (!PyByteArray_Check(arg)) { PyErr_SetString("
+                    "PyExc_TypeError, \"ctx must be a bytearray\"); "
+                    "return NULL; }",
+                    "    u64 r1 = (u64)(uintptr_t)PyByteArray_AS_STRING"
+                    "(arg);"]
+        else:
+            head += ["static PyObject *bpf_run(PyObject *self, "
+                     "PyObject *const *args, Py_ssize_t nargs) {"]
+            pro += [f"    if (nargs != {nargs} || !PyByteArray_Check"
+                    "(args[0])) { PyErr_SetString(PyExc_TypeError, "
+                    "\"expected (bytearray ctx, fired, dirs..., "
+                    "vcells..., cb)\"); "
+                    "return NULL; }",
+                    "    u64 r1 = (u64)(uintptr_t)PyByteArray_AS_STRING"
+                    "(args[0]);",
+                    "    Env _env; Env *E = &_env;",
+                    "    E->dirty = 0; E->err = 0;",
+                    "    E->fired = PyLong_AsLong(args[1]);"]
+            for i in range(nd):
+                pro.append(f"    E->D{i} = PyLong_AsUnsignedLongLong"
+                           f"(args[{2 + i}]);")
+            for j in range(nv):
+                pro.append(f"    u64 V{j} = PyLong_AsUnsignedLongLong"
+                           f"(args[{2 + nd + j}]);")
+            if self.uses_prandom:
+                pro.append("    E->PR = PyLong_AsUnsignedLongLong"
+                           f"(args[{2 + nd + nv}]);")
+            pro += [f"    E->cb = args[{2 + nd + nv + npr}];",
+                    "    if (E->fired == -1 && PyErr_Occurred()) "
+                    "return NULL;"]
+        pro += ["    u64 r0 = 0, r2 = 0, r3 = 0, r4 = 0, r5 = 0, "
+                "r6 = 0, r7 = 0, r8 = 0, r9 = 0;",
+                f"    unsigned char fr[{STACK_SIZE}];",
+                f"    u64 r10 = (u64)(uintptr_t)(fr + {STACK_SIZE});"]
+        tail: List[str] = []
+        if not self.pure:
+            # one machine increment per mutated map — the whole
+            # mutation-report path, on success AND on helper failure
+            bumps = [f"    if (E->dirty & {_u64c(1 << idx)}) "
+                     f"++*(u64 *)(uintptr_t)V{j};"
+                     for j, idx in enumerate(self.dirty_idx)]
+            tail += (["done:"] + bumps
+                     + ["    return PyLong_FromUnsignedLongLong(r0);",
+                        "fail:"] + bumps
+                     + ["    return NULL;"])
+        tail += ["}", ""]
+        meth = ("{\"run\", (PyCFunction)bpf_run, METH_O, NULL}"
+                if self.pure else
+                "{\"run\", (PyCFunction)(void *)bpf_run, "
+                "METH_FASTCALL, NULL}")
+        tail += [
+            "static PyMethodDef _meths[] = {",
+            f"    {meth},",
+            "    {NULL, NULL, 0, NULL}};",
+            "static struct PyModuleDef _mod = {",
+            "    PyModuleDef_HEAD_INIT, \"@MOD@\", NULL, -1, _meths};",
+            "PyMODINIT_FUNC PyInit_@MOD@(void) "
+            "{ return PyModule_Create(&_mod); }",
+            "",
+        ]
+        src = "\n".join(head + pro + body + tail)
+        return src, structured
+
+
+# ---------------------------------------------------------------------------
+# per-load runtime binding: callback handlers + specialized wrapper
+# ---------------------------------------------------------------------------
+
+_ATYPE: Dict[int, type] = {}  # per-size ctypes array types (creation is slow)
+
+
+def _atype(n: int) -> type:
+    t = _ATYPE.get(n)
+    if t is None:
+        t = _ATYPE.setdefault(n, ctypes.c_ubyte * n)
+    return t
+
+
+def _export(v: bytearray, ka: list) -> int:
+    """Pin a live value buffer for the remainder of the call and return
+    its address (cleared at the thread's next call entry)."""
+    e = _atype(len(v)).from_buffer(v)
+    ka.append(e)
+    return ctypes.addressof(e)
+
+
+def _make_handlers(prog: Program, vinfo, resolved: Dict[str, BpfMap],
+                   printk: Callable[[int], None],
+                   views: Dict[str, object],
+                   ka_get: Callable[[], list]) -> Dict[int, Callable]:
+    """Per-call-site Python handlers: exact VM helper semantics, fire
+    points included, addresses in place of Ptr objects.  Keys are global
+    pcs (function base + local pc) so sites in call_fn callees never
+    collide with main's."""
+    fire = _faults.fire
+    string_at = ctypes.string_at
+    handlers: Dict[int, Callable] = {}
+
+    for base, body, fi in _fn_table(prog, vinfo):
+      for pc, insn in enumerate(body):
+        if insn.op == "call_fn":
+            # call-entry fault point: the C side invokes this before the
+            # native call when an injector is armed (fired mode); a raise
+            # here contains exactly like the VM's call_fn fire
+            spname = prog.subprogs[insn.imm].name
+
+            def h(r1, r2, r3, r4, r5, _n=spname):
+                fire("call_fn", _n)
+                return 0
+            handlers[base + pc] = h
+            continue
+        if insn.op != "call" or pc not in fi.call_map:
+            continue
+        hname = H.HELPERS[insn.imm].name
+        mname = fi.call_map[pc]
+        m = resolved.get(mname) if mname else None
+
+        if hname == "ktime_get_ns":
+            def h(r1, r2, r3, r4, r5):
+                fire("helper", "ktime_get_ns")
+                return H.ktime_get_ns() & M64
+        elif hname == "get_prandom_u32":
+            def h(r1, r2, r3, r4, r5):
+                fire("helper", "get_prandom_u32")
+                return H.get_prandom_u32()
+        elif hname == "trace_printk":
+            def h(r1, r2, r3, r4, r5):
+                fire("helper", "trace_printk")
+                printk(r1 & M64)
+                return 0
+        elif hname == "map_lookup_elem":
+            if m.name in views:
+                def h(r1, r2, r3, r4, r5, m=m, view=views[m.name],
+                      ks=m.key_size, mx=m.max_entries):
+                    fire("helper", "map_lookup_elem")
+                    k = int.from_bytes(string_at(r2, ks), "little")
+                    return view.slot_addr(k) if k < mx else 0
+            else:
+                # identity-validated export cache: hash/LRU value cells
+                # are stable bytearrays mutated by slice-assign, so the
+                # (key -> export) mapping stays valid until the table
+                # entry is replaced — the `is` check catches that.  The
+                # cache holds the export (pinning the cell); on overflow
+                # evicted exports park in the thread keepalive so any
+                # address the program still holds this call stays live.
+                def h(r1, r2, r3, r4, r5, m=m, ks=m.key_size, cache={},
+                      cap=4 * m.max_entries + 64):
+                    fire("helper", "map_lookup_elem")
+                    key = string_at(r2, ks)
+                    v = m.lookup_ref(key)
+                    if v is None:
+                        return 0
+                    ent = cache.get(key)
+                    if ent is not None and ent[0] is v:
+                        return ent[1]
+                    if len(cache) >= cap:
+                        ka_get().extend(e[2] for e in cache.values())
+                        cache.clear()
+                    e = _atype(len(v)).from_buffer(v)
+                    addr = ctypes.addressof(e)
+                    cache[key] = (v, addr, e)
+                    return addr
+        elif hname == "map_update_elem":
+            def h(r1, r2, r3, r4, r5, m=m, ks=m.key_size, vs=m.value_size):
+                fire("helper", "map_update_elem")
+                if m.kind == "hash":
+                    fire("hash_rmw", m.name)
+                return m.update(string_at(r2, ks), string_at(r3, vs)) & M64
+        elif hname == "map_delete_elem":
+            def h(r1, r2, r3, r4, r5, m=m, ks=m.key_size):
+                fire("helper", "map_delete_elem")
+                return m.delete(string_at(r2, ks)) & M64
+        elif hname == "ema_update":
+            def h(r1, r2, r3, r4, r5, m=m, ks=m.key_size):
+                fire("helper", "ema_update")
+                fire("map_rmw", m.name)
+                if m.kind == "hash":
+                    fire("hash_rmw", m.name)
+                key = string_at(r2, ks)
+                w = r4 if r4 > 1 else 1
+                with m.lock:    # lock-held RMW (maps.py mutation contract)
+                    v = m.lookup_ref(key)
+                    old = 0 if v is None else int.from_bytes(
+                        v[0:8], "little")
+                    new = ((old * (w - 1) + r3) // w) & M64
+                    if v is None:
+                        buf = bytearray(m.value_size)
+                        buf[0:8] = new.to_bytes(8, "little")
+                        m.update(key, bytes(buf))
+                    else:
+                        v[0:8] = new.to_bytes(8, "little")
+                        m.touch()
+                return new
+        elif hname == "ringbuf_reserve":
+            def h(r1, r2, r3, r4, r5, m=m):
+                fire("helper", "ringbuf_reserve")
+                v = m.reserve_ref()
+                return 0 if v is None else _export(v, ka_get())
+        elif hname == "ringbuf_submit":
+            def h(r1, r2, r3, r4, r5, m=m):
+                fire("helper", "ringbuf_submit")
+                return m.submit() & M64
+        elif hname == "ringbuf_discard":
+            def h(r1, r2, r3, r4, r5, m=m):
+                fire("helper", "ringbuf_discard")
+                return m.discard() & M64
+        else:  # pragma: no cover — helper table is closed
+            raise NativeCompileError(f"no handler for helper {hname}")
+        handlers[base + pc] = h
+    return handlers
+
+
+_META: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def get_meta(fn) -> Dict[str, object]:
+    """Introspection for tests/benchmarks (generated C, structuredness)."""
+    return _META.get(fn, {})
+
+
+def _needs_keepalive(prog: Program, vinfo, resolved, views) -> bool:
+    for base, body, fi in _fn_table(prog, vinfo):
+        for pc, insn in enumerate(body):
+            if insn.op != "call" or pc not in fi.call_map:
+                continue
+            hname = H.HELPERS[insn.imm].name
+            if hname == "ringbuf_reserve":
+                return True
+            if hname == "map_lookup_elem":
+                mname = fi.call_map[pc]
+                if mname and mname not in views:
+                    return True
+    return False
+
+
+def compile_native(prog: Program, resolved_maps: Dict[str, BpfMap],
+                   vinfo=None, *,
+                   printk: Callable[[int], None] = lambda v: None
+                   ) -> Callable[[bytearray], int]:
+    """Compile verified bytecode to a native function ``fn(ctx_buf) -> int``.
+
+    ``vinfo`` is the verifier produced by ``verify_with_info``; omitted,
+    the program is (re-)verified here.  Raises :class:`NativeCompileError`
+    when the toolchain is missing or rejects the generated C (callers
+    treat that as a load-time rejection or fall back to the v2 JIT)."""
+    if vinfo is None:
+        from .verifier import verify_with_info
+        vinfo = verify_with_info(prog)
+    if not have_cc():
+        raise NativeCompileError("no C toolchain available")
+
+    gen = _CGen(prog, vinfo, resolved_maps)
+    src, structured = gen.generate()
+    mod = _build_module(src)
+
+    meta = {"source": src, "codegen": "native", "structured": structured,
+            "pure": gen.pure, "module": mod.__name__}
+    if gen.pure:
+        # no helpers reachable: the extension method IS the program.
+        # ~40 ns/call — the paper's 80–130 ns window, finally.
+        fn = mod.run
+        _META[fn] = meta
+        return fn
+
+    views = {n: resolved_maps[n].native_view() for n in gen.direct_maps}
+    tls = threading.local()
+
+    def ka_get():
+        try:
+            return tls.ka
+        except AttributeError:
+            tls.ka = ka = []
+            return ka
+
+    handlers = _make_handlers(prog, vinfo, resolved_maps, printk,
+                              views, ka_get)
+
+    def cb(pc, a1, a2, a3, a4, a5):
+        return handlers[pc](a1, a2, a3, a4, a5)
+
+    # specialized wrapper: only the steps THIS program needs, resolved to
+    # locals (same idiom as the JIT's exec-generated closures)
+    env: Dict[str, object] = {"_run": mod.run, "_cb": cb,
+                              "_faults": _faults}
+    lines = ["def _fn(ctx):"]
+    if _needs_keepalive(prog, vinfo, resolved_maps, views):
+        env["_kaget"] = ka_get
+        lines.append("    _kaget().clear()")
+    args = ["ctx", "1 if _faults._INJECTOR is not None else 0"]
+    for i, mname in enumerate(gen.direct_maps):
+        m = resolved_maps[mname]
+        view = views[mname]
+        if m.kind == "perdev_array":
+            # shard selected per call: set_device() swaps live storage
+            env[f"_m{i}"] = m
+            env[f"_d{i}s"] = view.dir_addrs
+            args.append(f"_d{i}s[_m{i}._current]")
+        else:
+            args.append(str(view.dir_addr(0)))
+    for mname in gen.dirty_maps:
+        args.append(str(ctypes.addressof(
+            resolved_maps[mname]._native_bumps)))
+    if gen.uses_prandom:
+        args.append(str(ctypes.addressof(H._PRNG_STATE)))
+    args.append("_cb")
+    lines.append(f"    return _run({', '.join(args)})")
+    exec("\n".join(lines), env)  # noqa: S102 — generated from verified code
+    fn = env["_fn"]
+    fn.__bpf_source__ = src
+    fn.__bpf_codegen__ = "native"
+    fn.__bpf_structured__ = structured
+    _META[fn] = meta
+    return fn

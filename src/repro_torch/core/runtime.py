@@ -53,6 +53,7 @@ from typing import Callable, Deque, Dict, Iterable, List, Optional, Sequence, Tu
 
 from . import faults as _faults
 from .context import CTX_TYPES, PolicyContextValues
+from .jit import compile_program
 from .maps import BpfMap, MapError, MapRegistry, RingView
 from .program import Program
 from .verifier import VerifierError, verify_with_info
@@ -257,6 +258,15 @@ class PolicyRuntime:
       * ``"torch"``  — the kernel's plain PyTorch version
         (:mod:`repro_torch.core.torchc`) on the CPU
       * ``"interp"`` — reference interpreter (differential ground truth)
+      * ``"jit"``    — specializing host JIT (v2 codegen,
+        :mod:`repro_torch.core.jit`) on the CPU
+      * ``"native"`` — machine code through the system C toolchain
+        (:mod:`repro_torch.core.cc`) on the CPU; without a toolchain it
+        runs the ``jit`` closure instead, as in the reference (the
+        closure's ``__bpf_codegen__`` says which ran)
+      * ``"auto"``   — resolved at construction to ``"native"`` when
+        :func:`~repro_torch.core.cc.have_cc` holds, else ``"jit"``;
+        :attr:`tier` holds the resolved name
 
     ``cuda``, ``cuda32`` and ``torch`` run behind a device-resident
     :class:`~repro_torch.core.bridge.DeviceBridge`: map uploads are
@@ -270,7 +280,7 @@ class PolicyRuntime:
     compiler the tier selects.  ``use_interpreter=True`` is the legacy
     spelling of ``tier="interp"``."""
 
-    TIERS = ("cuda", "cuda32", "torch", "interp")
+    TIERS = ("cuda", "cuda32", "torch", "interp", "jit", "native")
 
     def __init__(self, *, use_interpreter: bool = False,
                  tier: Optional[str] = None,
@@ -280,6 +290,11 @@ class PolicyRuntime:
                  breaker: Optional[BreakerConfig] = None):
         if tier is None:
             tier = "interp" if use_interpreter else "cuda"
+        if tier == "auto":
+            # fastest available host tier: machine code when the box has
+            # a toolchain, else the v2 JIT closure
+            from .cc import have_cc
+            tier = "native" if have_cc() else "jit"
         if tier not in self.TIERS:
             raise ValueError(f"unknown tier {tier!r}; valid tiers: "
                              f"{', '.join(self.TIERS)}")
@@ -873,6 +888,27 @@ class PolicyRuntime:
                         printk=self._printk_log.append, fuel=fuel,
                         subprogs=program.subprogs)
                 fn = vm.run
+            elif self.tier == "native":
+                # machine code via the system toolchain; same verifier
+                # artifacts, third consumer.  Hosts without a compiler
+                # fall back to the v2 JIT closure — the tier degrades,
+                # it never rejects a program the JIT would accept
+                from .cc import compile_native, have_cc
+                if have_cc():
+                    fn = compile_native(
+                        program, resolved, vinfo,
+                        printk=self._printk_log.append)
+                else:
+                    fn = compile_program(program, resolved,
+                                         printk=self._printk_log.append,
+                                         info=vinfo)
+            elif self.tier == "jit":
+                # the verifier's region analysis feeds the specializing
+                # (v2) code generator — one static pass pays for both
+                # safety and speed
+                fn = compile_program(program, resolved,
+                                     printk=self._printk_log.append,
+                                     info=vinfo)
             else:
                 # the policy kernel (or its plain version) behind the
                 # device-resident bridge; the verifier's cfg/loop_bounds/

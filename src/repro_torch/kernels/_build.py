@@ -29,7 +29,7 @@ from ..device import DeviceError, have_cuda
 PKG = Path(__file__).resolve().parent
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 # the dtypes the kernels take, by the code their launch functions read
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class CudaKernel:
@@ -102,7 +102,10 @@ def check_operand(what: str, t: torch.Tensor, shape, dtype) -> None:
 
 
 def kernel_dtype(what: str, dtype: torch.dtype) -> int:
+    """The launch functions' code for ``dtype``; ``ValueError`` for a
+    dtype the kernels do not take (the reference's Pallas kernels cast
+    float32, bfloat16 and float16 operands to f32 as they load them)."""
     if dtype not in DTYPE_CODE:
-        raise ValueError(f"{what}: the CUDA kernel takes float32 or "
-                         f"bfloat16, got {dtype}")
+        raise ValueError(f"{what}: the CUDA kernel takes float32, bfloat16 "
+                         f"or float16, got {dtype}")
     return DTYPE_CODE[dtype]

@@ -16,8 +16,12 @@ heads unexpanded: query head ``qh`` of q ``(BH, S, d)`` reads kv head
   stream, each counted in ``KERNEL.launches``: bfloat16 on the tensor
   cores (one launch, or two for a split-KV call: the chunks, then their
   combine; :func:`attention_plan`), float32 on the CUDA cores (one);
-  raises ``DeviceError`` on tensors that are not on the current CUDA
-  device.
+  any other mix of float32, bfloat16 and float16 (float16, or q and k/v
+  of two dtypes) on the float32 kernel after widening q, k and v to
+  float32 on the card (exact), with one cast of its output to q's
+  dtype: the Pallas kernel's arithmetic, which casts each operand to
+  f32 as it loads it.  Raises ``DeviceError`` on tensors that are not
+  on the current CUDA device.
 * :func:`flash_attention_plain` — ``_attn_kernel``'s arithmetic over
   ``bk``-wide kv tiles in order, every query row at once, on expanded
   k/v: the same query offset, masks, ``NEG_INF``, ``alpha`` guard and
@@ -78,18 +82,24 @@ def kv_splits(BH: int, S: int, T: int, d: int, group: int) -> int:
 
 
 def attention_plan(BH: int, S: int, T: int, d: int, group: int,
-                   dtype: torch.dtype) -> dict:
-    """What :func:`flash_attention_cuda` launches for these shapes: the
-    kernel, its tiles, the kv splits and the launches it counts."""
-    if dtype == torch.bfloat16:
+                   dtype: torch.dtype, *kv_dtypes: torch.dtype) -> dict:
+    """What :func:`flash_attention_cuda` launches for these shapes, q of
+    ``dtype`` and k and v of ``kv_dtypes`` (``dtype`` when not given):
+    the kernel, its tiles, the kv splits, the launches it counts and
+    whether the operands are widened to float32 first (``upcast``)."""
+    dtypes = {dtype, *kv_dtypes}
+    for dt in dtypes:
+        kernel_dtype("flash_attention", dt)
+    if dtypes == {torch.bfloat16}:
         dp, rows, keys = tc_tiles(d, S * group)
         n = kv_splits(BH, S, T, d, group)
         return {"kernel": "tensor cores", "rows_per_block": rows,
                 "keys_per_tile": keys, "head_dim_padded": dp, "splits": n,
-                "launches": 2 if n > 1 else 1}
+                "launches": 2 if n > 1 else 1, "upcast": False}
     return {"kernel": "cuda cores", "rows_per_block": 64,
             "keys_per_tile": 64, "head_dim_padded": d, "splits": 1,
-            "launches": 1}
+            "launches": 1,
+            "upcast": dtypes != {torch.float32}}
 
 
 def _check_blocks(S: int, T: int, bq: int, bk: int):
@@ -157,18 +167,22 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     BH, S, T, d = _shapes(q, k, v, group)
     _check_blocks(S, T, bq, bk)
     on_card("flash_attention", q, k, v)
-    code = kernel_dtype("flash_attention", q.dtype)
+    plan = attention_plan(BH, S, T, d, group, q.dtype, k.dtype, v.dtype)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the CUDA kernel takes head dims "
                          f"up to {MAX_HEAD_DIM}, got {d}")
     check_operand("q", q, (BH, S, d), q.dtype)
-    check_operand("k", k, (BH // group, T, d), q.dtype)
-    check_operand("v", v, (BH // group, T, d), q.dtype)
+    check_operand("k", k, (BH // group, T, d), k.dtype)
+    check_operand("v", v, (BH // group, T, d), v.dtype)
     scale = scale if scale is not None else d ** -0.5
+    out_dtype = q.dtype
+    if plan["upcast"]:
+        q, k, v = q.float(), k.float(), v.float()
+    code = kernel_dtype("flash_attention", q.dtype)
     out = torch.empty_like(q)
     if not out.numel():
-        return out
-    n = attention_plan(BH, S, T, d, group, q.dtype)["splits"]
+        return out.to(out_dtype)
+    n = plan["splits"]
     # 16-byte copies need rows of whole 16-byte chunks, aligned
     vec = int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     part = [None] * 3
@@ -183,4 +197,4 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     if n > 1:
         KERNEL.launch("attn_combine_launch", *ptrs, out.data_ptr(), BH * S,
                       S, d, group, n)
-    return out
+    return out.to(out_dtype)

@@ -13,7 +13,12 @@ D % bd == 0`` after taking the ``min`` with the shape).
   both base pointers 16-byte aligned) on ``wgmma`` fed by TMA, a
   persistent grid of one block per SM over 128 x 256 tiles; other
   bfloat16 on WMMA (128 x 128 tiles, a block each); float32 on the
-  CUDA cores (64 x 64 tiles, no TF32).  Always one launch.
+  CUDA cores (64 x 64 tiles, no TF32).  Any other mix of float32,
+  bfloat16 and float16 (float16 alone, or x and w of two dtypes) takes
+  the float32 route: both operands widened to float32 on the card
+  (exact), the float32 kernel, one cast of its output to x's dtype,
+  which is the Pallas kernel's arithmetic (it casts each operand to f32
+  as it loads it).  Always one launch.
 * :func:`grouped_matmul_cuda` — checks, then one launch of the planned
   kernel on the current stream (counted in ``KERNEL.launches``); raises
   ``DeviceError`` on tensors that are not on the current CUDA device.
@@ -26,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ...device import have_cuda
-from .._build import CudaKernel, check_operand, on_card
+from .._build import CudaKernel, check_operand, kernel_dtype, on_card
 
 KERNEL = CudaKernel("grouped_matmul", "grouped_matmul/csrc/grouped_matmul.cu",
                     {"gmm_launch": "pppiiiiii"})
@@ -47,17 +52,25 @@ def _sms() -> int:
 
 
 def gmm_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
-             x_ptr: int = 0, w_ptr: int = 0, *, sms=None) -> dict:
-    """What :func:`grouped_matmul_cuda` launches for x (E, C, D) at
-    ``x_ptr`` and w (E, D, F) at ``w_ptr``: the route, its tiles, the
-    output tiles and the blocks, one launch.  ``sms``: the card's SM
-    count (the current device's, or an H100's without one), which sizes
-    the persistent grid of the ``wgmma`` route."""
-    if dtype == torch.float32:
+             x_ptr: int = 0, w_ptr: int = 0, *, sms=None,
+             w_dtype=None) -> dict:
+    """What :func:`grouped_matmul_cuda` launches for x (E, C, D) of
+    ``dtype`` at ``x_ptr`` and w (E, D, F) of ``w_dtype`` (``dtype``
+    when None) at ``w_ptr``: the route, its tiles, the output tiles and
+    the blocks, one launch; ``upcast`` where the operands are widened
+    to float32 first.  ``sms``: the card's SM count (the current
+    device's, or an H100's without one), which sizes the persistent
+    grid of the ``wgmma`` route."""
+    w_dtype = dtype if w_dtype is None else w_dtype
+    kernel_dtype("grouped_matmul x", dtype)
+    kernel_dtype("grouped_matmul w", w_dtype)
+    upcast = False
+    if dtype == w_dtype == torch.float32:
         route, why = "cuda cores", "float32 stays float32 (no TF32)"
-    elif dtype != torch.bfloat16:
-        raise ValueError(f"grouped_matmul: the CUDA kernel takes float32 "
-                         f"or bfloat16, got {dtype}")
+    elif not dtype == w_dtype == torch.bfloat16:
+        route, upcast = "cuda cores", True
+        why = (f"x {dtype} with w {w_dtype}: both widened to float32 "
+               "(exact), the float32 kernel, one cast to x's dtype")
     elif D % 8 or F % 8:
         route, why = "wmma", (f"TMA needs rows of 16 bytes: D={D} and "
                               f"F={F} must be multiples of 8")
@@ -68,7 +81,8 @@ def gmm_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
     bm, bn, bk = GMM_TILES[route]
     tiles = E * -(-C // bm) * -(-F // bn)
     plan = {"route": route, "why": why, "tile": (bm, bn, bk),
-            "tiles": tiles, "blocks": tiles, "launches": 1}
+            "tiles": tiles, "blocks": tiles, "launches": 1,
+            "upcast": upcast}
     if route == "wgmma":
         sms = _sms() if sms is None else sms
         plan.update(blocks=min(tiles, sms), stages=WGMMA_STAGES,
@@ -111,12 +125,14 @@ def grouped_matmul_cuda(x, w, *, bc: int = 128, bf: int = 128,
     E, C, D, F = _shapes(x, w)
     _check_tiles(C, D, F, bc, bf, bd)
     on_card("grouped_matmul", x, w)
-    plan = gmm_plan(E, C, D, F, x.dtype, x.data_ptr(), w.data_ptr())
+    plan = gmm_plan(E, C, D, F, x.dtype, x.data_ptr(), w.data_ptr(),
+                    w_dtype=w.dtype)
     check_operand("x", x, (E, C, D), x.dtype)
-    check_operand("w", w, (E, D, F), x.dtype)
-    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    check_operand("w", w, (E, D, F), w.dtype)
+    xk, wk = (x.float(), w.float()) if plan["upcast"] else (x, w)
+    out = torch.empty((E, C, F), dtype=xk.dtype, device=x.device)
     if out.numel():
-        KERNEL.launch("gmm_launch", x.data_ptr(), w.data_ptr(),
+        KERNEL.launch("gmm_launch", xk.data_ptr(), wk.data_ptr(),
                       out.data_ptr(), E, C, D, F, GMM_ROUTES[plan["route"]],
                       plan["blocks"])
-    return out
+    return out.to(x.dtype)

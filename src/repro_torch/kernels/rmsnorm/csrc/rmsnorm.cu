@@ -10,17 +10,23 @@
 // sum-of-squares reduction and the writes, so device memory is read
 // once; neighbouring threads touch neighbouring elements.
 //
+// The operands' dtypes are the caller's, as in the Pallas kernel, which
+// casts each to f32 as it loads it: x and the outputs in T, the
+// residual in R (float32, bfloat16 or float16 each), scale in f32 (the
+// wrapper widens it, exactly).
+//
 // The arithmetic is the Pallas kernel's, not the oracle's:
 //   x   = f32(x) [+ f32(r)]                 residual added in f32 (:22-23)
 //   var = sum(x * x) / D ;  y = x / sqrt(var + eps)
 //   out = T(f32(T(y)) * f32(T(scale)))      y cast before the multiply
 //                                           (:26-27); the product of two
-//                                           bf16 values is exact in f32,
-//                                           so one rounding equals a bf16
-//                                           multiply
+//                                           bf16 or f16 values is exact in
+//                                           f32, so one rounding equals a
+//                                           multiply in T
 //   res = T(x)                              written even without r (:28)
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -31,6 +37,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
     return v;
@@ -38,6 +45,9 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
     return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+    return __float2half_rn(v);
 }
 
 // The block's sum of v; every thread gets the same bits (the partials
@@ -53,9 +63,9 @@ __device__ float block_sum(float v) {
     return t;
 }
 
-template <typename T>
+template <typename T, typename R>
 __global__ void __launch_bounds__(THREADS)
-rmsnorm_kernel(const T *__restrict__ x, const T *__restrict__ r,
+rmsnorm_kernel(const T *__restrict__ x, const R *__restrict__ r,
                const float *__restrict__ scale, T *__restrict__ y,
                T *__restrict__ res, int D, float eps) {
     extern __shared__ float row[];          // D floats: x (+ r) in f32
@@ -79,36 +89,59 @@ rmsnorm_kernel(const T *__restrict__ x, const T *__restrict__ r,
     }
 }
 
-template <typename T>
+template <typename T, typename R>
 cudaError_t launch(const void *x, const void *r, const float *scale,
                    void *y, void *res, int rows, int D, float eps,
                    cudaStream_t stream) {
     const size_t smem = (size_t)D * sizeof(float);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            rmsnorm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            rmsnorm_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return e;
     }
-    rmsnorm_kernel<T><<<rows, THREADS, smem, stream>>>(
-        (const T *)x, (const T *)r, scale, (T *)y, (T *)res, D, eps);
+    rmsnorm_kernel<T, R><<<rows, THREADS, smem, stream>>>(
+        (const T *)x, (const R *)r, scale, (T *)y, (T *)res, D, eps);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_r(const void *x, const void *r, const float *scale,
+                     void *y, void *res, int rows, int D, float eps,
+                     int rdtype, cudaStream_t s) {
+    switch (rdtype) {
+    case 0: return launch<T, float>(x, r, scale, y, res, rows, D, eps, s);
+    case 1:
+        return launch<T, __nv_bfloat16>(x, r, scale, y, res, rows, D, eps, s);
+    case 2: return launch<T, __half>(x, r, scale, y, res, rows, D, eps, s);
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, r (nullable), y, res: (rows, D) of one dtype (0 float32, 1 bfloat16);
+// x, y, res: (rows, D) of dtype; r (nullable): (rows, D) of rdtype (each
+// 0 float32, 1 bfloat16, 2 float16; rdtype is read only with r);
 // scale: (D,) float32.
 extern "C" int rmsnorm_launch(const void *x, const void *r,
                               const void *scale, void *y, void *res,
                               int rows, int D, float eps, int dtype,
-                              void *stream) {
+                              int rdtype, void *stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e =
-        dtype == 1
-            ? launch<__nv_bfloat16>(x, r, (const float *)scale, y, res, rows,
-                                    D, eps, s)
-            : launch<float>(x, r, (const float *)scale, y, res, rows, D,
-                            eps, s);
+    const float *sc = (const float *)scale;
+    if (r == nullptr) rdtype = dtype;
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (dtype) {
+    case 0:
+        e = launch_r<float>(x, r, sc, y, res, rows, D, eps, rdtype, s);
+        break;
+    case 1:
+        e = launch_r<__nv_bfloat16>(x, r, sc, y, res, rows, D, eps, rdtype,
+                                    s);
+        break;
+    case 2:
+        e = launch_r<__half>(x, r, sc, y, res, rows, D, eps, rdtype, s);
+        break;
+    }
     return (int)e;
 }

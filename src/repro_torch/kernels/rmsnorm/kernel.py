@@ -8,7 +8,9 @@ the row's f32 sum in shared memory, so ``bt`` only shapes the contract
 
 * :func:`fused_rmsnorm_cuda` — checks, then one launch on the current
   stream (counted in ``KERNEL.launches``); raises ``DeviceError`` on
-  tensors that are not on the current CUDA device.
+  tensors that are not on the current CUDA device.  x and the residual
+  may each be float32, bfloat16 or float16: the kernel reads each in its
+  own dtype (a code per operand) and writes both outputs in x's.
 * :func:`fused_rmsnorm_plain` — the Pallas kernel's arithmetic step for
   step in torch: the residual added in f32, ``y`` cast to the output
   dtype before the multiply by ``scale`` cast to it, the residual stream
@@ -22,7 +24,7 @@ import torch
 from .._build import (CudaKernel, check_operand, kernel_dtype, on_card)
 
 KERNEL = CudaKernel("fused_rmsnorm", "rmsnorm/csrc/rmsnorm.cu",
-                    {"rmsnorm_launch": "pppppiifi"})
+                    {"rmsnorm_launch": "pppppiifii"})
 
 
 def _check_rows(T: int, bt: int) -> int:
@@ -54,9 +56,11 @@ def fused_rmsnorm_cuda(x, scale, residual=None, *, eps: float = 1e-6,
     operands = [x, scale] + ([residual] if residual is not None else [])
     on_card("fused_rmsnorm", *operands)
     code = kernel_dtype("fused_rmsnorm", x.dtype)
+    rcode = code
     check_operand("x", x, (T, D), x.dtype)
     if residual is not None:
-        check_operand("residual", residual, (T, D), x.dtype)
+        rcode = kernel_dtype("fused_rmsnorm residual", residual.dtype)
+        check_operand("residual", residual, (T, D), residual.dtype)
     # the kernel reads scale in f32 and casts it to x.dtype, as the
     # Pallas kernel does; float32 holds every bf16 value exactly
     scale = scale.float()
@@ -67,5 +71,5 @@ def fused_rmsnorm_cuda(x, scale, residual=None, *, eps: float = 1e-6,
         KERNEL.launch("rmsnorm_launch", x.data_ptr(),
                       residual.data_ptr() if residual is not None else None,
                       scale.data_ptr(), y.data_ptr(), res.data_ptr(), T, D,
-                      eps, code)
+                      eps, code, rcode)
     return y, res

@@ -1,5 +1,6 @@
-"""Launch helpers of the port: the mesh facts the dispatcher reads."""
+"""Launch helpers of the port: host meshes and the mesh facts the
+dispatcher reads."""
 
-from .mesh import mesh_topology
+from .mesh import make_host_mesh, mesh_topology
 
-__all__ = ["mesh_topology"]
+__all__ = ["make_host_mesh", "mesh_topology"]

@@ -1,7 +1,7 @@
 // Runs one model kernel, or one PTX twin, under the CPU emulation
 // (cuda_runtime.h and ptx.h here).
 //
-//   harness rmsnorm f32|bf16 DIR T D RESIDUAL EPS
+//   harness rmsnorm f32|bf16|f16 DIR T D RESIDUAL EPS RDTYPE
 //   harness gmm     f32|bf16 DIR E C D F ROUTE BLOCKS
 //   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE GROUP NSPLIT VEC
 //   harness ptx     mma|ldmatrix|ldmatrix_trans|cvt|ex2|cp_async DIR
@@ -9,7 +9,8 @@
 //
 // Inputs are raw arrays in DIR (x, r, scale, w, q, k, v, a, b, c, m,
 // rows, smem, desc, args, g .bin), outputs are written there (y, res,
-// out, d, regs, log .bin).  gmm runs the kernel of ROUTE (kernel.py
+// out, d, regs, log .bin).  rmsnorm reads x in its dtype and r in
+// RDTYPE (f32|bf16|f16) and writes y and res in x's dtype.  gmm runs the kernel of ROUTE (kernel.py
 // GMM_ROUTES: 0 the CUDA-core kernel, 1 WMMA, 2 wgmma fed by TMA, as a
 // persistent grid of BLOCKS blocks).
 // The kernels' sources are the kernel halves of kernels/*/csrc/*.cu,
@@ -18,6 +19,7 @@
 // kernel, bfloat16 the tensor-core kernel (with NSPLIT > 1 its split-KV
 // form and then the combine kernel).
 #include "cuda_bf16.h"
+#include "cuda_fp16.h"
 #include "cuda_runtime.h"
 #include "ptx.h"
 
@@ -53,23 +55,33 @@ template <class T> void wr(const char *name, const std::vector<T> &v) {
     fclose(f);
 }
 
+template <class T, class R> int run_rms(char **a) {
+    const int T_ = atoi(a[4]), D = atoi(a[5]), res = atoi(a[6]);
+    const float eps = (float)atof(a[7]);
+    const size_t n = (size_t)T_ * D;
+    auto x = rd<T>("x.bin", n);
+    auto r = res ? rd<R>("r.bin", n) : std::vector<R>();
+    auto s = rd<float>("scale.bin", D);
+    std::vector<T> y(n), rs(n);
+    emu::launch(dim3(T_), 256, [&] {
+        rms::rmsnorm_kernel<T, R>(x.data(), res ? r.data() : nullptr,
+                                  s.data(), y.data(), rs.data(), D, eps);
+    });
+    wr("y.bin", y);
+    wr("res.bin", rs);
+    return 0;
+}
+
+template <class T> int run_rms_r(char **a) {
+    const std::string r = a[8];
+    return r == "bf16"  ? run_rms<T, __nv_bfloat16>(a)
+           : r == "f16" ? run_rms<T, __half>(a)
+                        : run_rms<T, float>(a);
+}
+
 template <class T> int run(char **a) {
     const std::string k = a[1];
-    if (k == "rmsnorm") {
-        const int T_ = atoi(a[4]), D = atoi(a[5]), res = atoi(a[6]);
-        const float eps = (float)atof(a[7]);
-        const size_t n = (size_t)T_ * D;
-        auto x = rd<T>("x.bin", n);
-        auto r = res ? rd<T>("r.bin", n) : std::vector<T>();
-        auto s = rd<float>("scale.bin", D);
-        std::vector<T> y(n), rs(n);
-        emu::launch(dim3(T_), 256, [&] {
-            rms::rmsnorm_kernel<T>(x.data(), res ? r.data() : nullptr,
-                                   s.data(), y.data(), rs.data(), D, eps);
-        });
-        wr("y.bin", y);
-        wr("res.bin", rs);
-    } else if (k == "gmm") {
+    if (k == "gmm") {
         const int E = atoi(a[4]), C = atoi(a[5]), D = atoi(a[6]), F = atoi(a[7]);
         const int route = atoi(a[8]), blocks = atoi(a[9]);
         auto x = rd<T>("x.bin", (size_t)E * C * D);
@@ -356,6 +368,12 @@ int main(int argc, char **argv) {
     if (argc < 4) return 2;
     dir = argv[3];
     if (std::string(argv[1]) == "ptx") return run_ptx(argv[2]);
+    if (std::string(argv[1]) == "rmsnorm") {
+        const std::string t = argv[2];
+        return t == "bf16"  ? run_rms_r<__nv_bfloat16>(argv)
+               : t == "f16" ? run_rms_r<__half>(argv)
+                            : run_rms_r<float>(argv);
+    }
     return std::string(argv[2]) == "bf16" ? run<__nv_bfloat16>(argv)
                                           : run<float>(argv);
 }

@@ -18,37 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_samples as samples
+
 N_DECISIONS = 256
-
-
-def _stream(n: int, seed: int = 5):
-    rng = np.random.default_rng(seed)
-    return list(zip(rng.choice([0, 1, 2], n).tolist(),
-                    np.left_shift(1, rng.integers(12, 31, n)).tolist(),
-                    rng.choice(["dp", "tp", "ep"], n).tolist(),
-                    rng.integers(2_000, 3_000_000, n).tolist()))
-
-
-def _drive(PolicyRuntime, CollectiveDispatcher, pols, tier, stream):
-    rt = PolicyRuntime(tier=tier)
-    disp = CollectiveDispatcher(runtime=rt)
-    tune = rt.attach(pols.bucket_tuner.program, priority=0)
-    rt.attach(pols.adapt_tuner.program, priority=1)
-    rt.attach(pols.adapt_profiler.program)
-    rt.attach(pols.bucket_profiler.program)
-    out = []
-    for i, (coll, size, axis, lat) in enumerate(stream):
-        if i == len(stream) // 2:
-            tune.replace(pols.bucket_tuner.program)
-        d = disp.decide(coll, size, 8, axis_name=axis)
-        out.append(dataclasses.astuple(d))
-        disp.profiler_feed(d.comm_id, lat, coll=d.coll,
-                           msg_size=d.size_bytes, channels=d.channels,
-                           algo=d.algo)
-    rt.flush_bridges()
-    maps = {n: rt.maps.get(n).to_device().tobytes()
-            for n in sorted(rt.maps.names())}
-    return out, maps, rt
 
 
 def test_decision_stream_matches_reference_pallas():
@@ -57,18 +29,16 @@ def test_decision_stream_matches_reference_pallas():
         pytest.skip("jax build lacks a working enable_x64")
     import repro.policies as ref_pols
     from repro.collectives import CollectiveDispatcher as RefDispatcher
-    from repro.core import PolicyRuntime as RefRuntime
 
     import repro_torch.policies as pols
     from repro_torch.collectives import CollectiveDispatcher
-    from repro_torch.core import PolicyRuntime
 
-    stream = _stream(N_DECISIONS)
-    want, want_maps, _ = _drive(RefRuntime, RefDispatcher, ref_pols,
-                                "pallas", stream)
+    stream = samples.decision_stream(N_DECISIONS)
+    want, want_maps, _ = samples.drive_closed_loop(RefDispatcher, ref_pols,
+                                                   "pallas", stream)
     for tier in ("torch", "interp"):
-        got, got_maps, rt = _drive(PolicyRuntime, CollectiveDispatcher,
-                                   pols, tier, stream)
+        got, got_maps, rt = samples.drive_closed_loop(
+            CollectiveDispatcher, pols, tier, stream)
         assert got == want, tier
         assert got_maps == want_maps, tier
     assert rt.maps.pinned_names() == ["adapt_map"]

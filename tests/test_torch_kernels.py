@@ -50,13 +50,14 @@ from repro_torch.kernels.rmsnorm import kernel as rms
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
 
 
 def _tol(dtype: str) -> dict:
-    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
-        else dict(rtol=2e-5, atol=2e-5)
+    return dict(rtol=2e-5, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-2)
 
 
 def _j(a, dtype: str):
@@ -472,12 +473,23 @@ def test_gmm_plan_routes(cell, E, C, D, F, ptrs, route, tiles, blocks):
 
 
 def test_gmm_plan_float32_and_other_dtypes():
+    """float32 runs on the CUDA cores as it is; float16 and mixed
+    operands are widened to float32 for the same kernel (ROADMAP C7);
+    a dtype the reference's kernel does not take raises."""
     plan = gmm.gmm_plan(64, 640, 2048, 1024, torch.float32, sms=132)
     assert (plan["route"], plan["tile"], plan["tiles"], plan["blocks"],
-            plan["launches"]) == ("cuda cores", (64, 64, 16), 10240, 10240,
-                                  1)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        gmm.gmm_plan(2, 64, 64, 64, torch.float16)
+            plan["launches"], plan["upcast"]) == (
+                "cuda cores", (64, 64, 16), 10240, 10240, 1, False)
+    for xdt, wdt in ((torch.float16, None), (torch.bfloat16, torch.float32),
+                     (torch.float32, torch.bfloat16),
+                     (torch.bfloat16, torch.float16)):
+        plan = gmm.gmm_plan(2, 64, 64, 64, xdt, w_dtype=wdt)
+        assert (plan["route"], plan["upcast"], plan["launches"]) == (
+            "cuda cores", True, 1)
+    assert not gmm.gmm_plan(2, 64, 64, 64, torch.bfloat16)["upcast"]
+    for xdt, wdt in ((torch.float64, None), (torch.bfloat16, torch.int32)):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            gmm.gmm_plan(2, 64, 64, 64, xdt, w_dtype=wdt)
 
 
 def test_launch_entries_match_the_sources():
@@ -556,7 +568,7 @@ def test_unknown_backend_raises():
 def test_cuda_sources_call_no_library_kernel():
     """The three kernels are written by hand: their sources include only
     the CUDA runtime, the driver API's declarations (for tensor maps),
-    bf16 and WMMA-intrinsic headers and name no cuBLAS, cuDNN or
+    bf16, fp16 and WMMA-intrinsic headers and name no cuBLAS, cuDNN or
     CUTLASS/CuTe code, and the CUDA wrappers call no torch product or
     attention."""
     sources = sorted(PKG.glob("*/csrc/*.cu"))
@@ -565,7 +577,8 @@ def test_cuda_sources_call_no_library_kernel():
     for p in sources:
         text = p.read_text()
         assert set(re.findall(r"#include\s*[<\"]([^>\"]+)", text)) <= {
-            "cuda.h", "cuda_runtime.h", "cuda_bf16.h", "mma.h"}, p
+            "cuda.h", "cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h",
+            "mma.h"}, p
         assert not re.search(r"cublas|cudnn|cutlass|cute::", text,
                              re.IGNORECASE), p
         assert "__global__" in text and "cudaGetLastError" in text, p
@@ -603,3 +616,128 @@ def test_build_error_names_the_source(monkeypatch):
                              r"\(kernels/rmsnorm/csrc/rmsnorm.cu\)"):
         k.build()
     assert k.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# operand dtypes (ROADMAP C7): mixed and float16, as the reference takes
+# them.  The Pallas kernels cast every operand to f32 as they load it and
+# write x's (q's) dtype; the port's "torch" backend against the JAX op
+# (Pallas interpreted) on the same seeded inputs, rtol = atol = 2e-5
+# where the output is float32, 2e-2 where it is bfloat16 or float16.
+# ---------------------------------------------------------------------------
+
+MIXES = [("bfloat16", "float32"), ("float32", "bfloat16"),
+         ("float16", "float16"), ("float16", "bfloat16"),
+         ("bfloat16", "float16"), ("float32", "float16")]
+
+
+def _same_dtype(port, ref) -> None:
+    assert str(port.dtype) == f"torch.{jnp.asarray(ref).dtype}"
+
+
+@pytest.mark.parametrize("xdt,odt", MIXES)
+def test_fused_rmsnorm_operand_dtypes(xdt, odt):
+    """x in ``xdt``; the residual and scale in ``odt``."""
+    a = samples.kernel_inputs("rmsnorm", 9, T=64, D=256, with_residual=True)
+    got = K.fused_rmsnorm(_t(a["x"], xdt), _t(a["scale"], odt),
+                          _t(a["residual"], odt), backend="torch", bt=32)
+    want = j_rms(_j(a["x"], xdt), _j(a["scale"], odt),
+                 _j(a["residual"], odt), backend="pallas", bt=32)
+    for port, ref in zip(got, want):
+        _same_dtype(port, ref)
+        np.testing.assert_allclose(_f32(port), _f32(ref), **_tol(xdt))
+
+
+@pytest.mark.parametrize("xdt,wdt", MIXES)
+def test_grouped_matmul_operand_dtypes(xdt, wdt):
+    a = samples.kernel_inputs("grouped_matmul", 9, E=2, C=64, D=128, F=64)
+    kw = dict(bc=64, bf=64, bd=64)
+    got = K.grouped_matmul(_t(a["x"], xdt), _t(a["w"], wdt), backend="torch",
+                           **kw)
+    want = j_gmm(_j(a["x"], xdt), _j(a["w"], wdt), backend="pallas", **kw)
+    _same_dtype(got, want)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(xdt))
+
+
+@pytest.mark.parametrize("qdt,kdt,vdt", [
+    (x, o, o) for x, o in MIXES] + [("bfloat16", "float32", "float16")])
+def test_flash_attention_operand_dtypes(qdt, kdt, vdt):
+    a = samples.kernel_inputs("flash_attention", 9, q_shape=(1, 4, 64, 32),
+                              kv_shape=(1, 2, 64, 32))
+    kw = dict(window=40, bq=32, bk=32)
+    got = K.flash_attention(_t(a["q"], qdt), _t(a["k"], kdt),
+                            _t(a["v"], vdt), backend="torch", **kw)
+    want = j_flash(_j(a["q"], qdt), _j(a["k"], kdt), _j(a["v"], vdt),
+                   backend="pallas", **kw)
+    _same_dtype(got, want)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(qdt))
+
+
+@pytest.fixture
+def stub_card(monkeypatch):
+    """The wrappers with the device check passed and the launch recorded
+    in place of the kernel (ROADMAP C7's reproduction): what reaches the
+    kernel, with no card."""
+    launched = []
+    for mod in (rms, gmm, fa):
+        monkeypatch.setattr(mod, "on_card", lambda *a: None)
+        monkeypatch.setattr(mod.KERNEL, "launch",
+                            lambda entry, *args: launched.append(
+                                (entry, args)))
+    return launched
+
+
+@pytest.mark.parametrize("xdt,odt", MIXES)
+def test_cuda_wrappers_take_the_reference_dtypes(stub_card, xdt, odt):
+    """No ``ValueError`` on mixed or float16 operands.  RMSNorm passes a
+    dtype code per operand; the grouped matmul and attention widen to
+    float32 and launch the float32 kernel; every output in x's (q's)
+    dtype."""
+    X, O = DTYPES[xdt][1], DTYPES[odt][1]
+    code = _build.DTYPE_CODE
+    x, r, s = torch.zeros(64, 128, dtype=X), torch.zeros(64, 128, dtype=O), \
+        torch.zeros(128, dtype=O)
+    y, res = rms.fused_rmsnorm_cuda(x, s, r, bt=64)
+    assert y.dtype == res.dtype == X
+    entry, args = stub_card.pop()
+    assert entry == "rmsnorm_launch" and args[-2:] == (code[X], code[O])
+
+    xg, wg = torch.zeros(2, 64, 128, dtype=X), torch.zeros(2, 128, 64,
+                                                           dtype=O)
+    assert gmm.grouped_matmul_cuda(xg, wg).dtype == X
+    entry, args = stub_card.pop()
+    assert entry == "gmm_launch" and args[-2] == gmm.GMM_ROUTES["cuda cores"]
+
+    q, kv = torch.zeros(4, 64, 32, dtype=X), torch.zeros(2, 64, 32, dtype=O)
+    assert fa.flash_attention_cuda(q, kv, kv, group=2).dtype == X
+    entry, args = stub_card.pop()
+    assert entry == "attn_launch" and args[-1] == code[torch.float32]
+    assert not stub_card
+
+
+def test_cuda_wrappers_keep_bf16_routes_and_refuse_other_dtypes(stub_card):
+    """bfloat16 operands keep their tensor-core routes; float64 and ints
+    still raise ``ValueError``, before any launch."""
+    bf = torch.bfloat16
+    xg, wg = torch.zeros(2, 64, 128, dtype=bf), torch.zeros(2, 128, 64,
+                                                            dtype=bf)
+    gmm.grouped_matmul_cuda(xg, wg)
+    plan = gmm.gmm_plan(2, 64, 128, 64, bf, xg.data_ptr(), wg.data_ptr())
+    assert stub_card.pop()[1][-2] == gmm.GMM_ROUTES[plan["route"]] != 0
+    q, kv = torch.zeros(4, 64, 32, dtype=bf), torch.zeros(2, 64, 32, dtype=bf)
+    fa.flash_attention_cuda(q, kv, kv, group=2)
+    assert stub_card.pop()[1][-1] == _build.DTYPE_CODE[bf]
+    assert fa.attention_plan(4, 64, 64, 32, 2, bf)["kernel"] == \
+        "tensor cores"
+    for bad in (torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            rms.fused_rmsnorm_cuda(torch.zeros(64, 128, dtype=bad),
+                                   torch.zeros(128), bt=64)
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            rms.fused_rmsnorm_cuda(torch.zeros(64, 128), torch.zeros(128),
+                                   torch.zeros(64, 128, dtype=bad), bt=64)
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            gmm.grouped_matmul_cuda(xg, wg.to(bad))
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            fa.flash_attention_cuda(q, kv.to(bad), kv, group=2)
+    assert not stub_card

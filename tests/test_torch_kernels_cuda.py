@@ -23,7 +23,8 @@ from repro_torch.kernels.grouped_matmul import kernel as gmm
 from repro_torch.kernels.rmsnorm import kernel as rms
 
 pytestmark = pytest.mark.cuda
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 @pytest.fixture
@@ -37,8 +38,8 @@ def card():
 
 
 def _tol(dtype: str) -> dict:
-    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
-        else dict(rtol=2e-5, atol=2e-5)
+    return dict(rtol=2e-5, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-2)
 
 
 def _on(a: np.ndarray, dtype: str, card) -> torch.Tensor:
@@ -285,3 +286,57 @@ def test_cuda_backend_raises_on_cpu_tensors(card):
             call()
     assert before == [k.launches for k in (rms.KERNEL, gmm.KERNEL,
                                             fa.KERNEL)]
+
+
+# ---------------------------------------------------------------------------
+# operand dtypes (ROADMAP C7): mixed and float16 on the card
+# ---------------------------------------------------------------------------
+
+MIXES = [("bfloat16", "float32"), ("float32", "bfloat16"),
+         ("float16", "float16"), ("float16", "bfloat16")]
+
+
+@pytest.mark.parametrize("xdt,odt", MIXES)
+def test_fused_rmsnorm_operand_dtypes(card, xdt, odt):
+    """The residual and scale in ``odt``: one launch reading each operand
+    in its own dtype, both outputs in x's."""
+    a = samples.kernel_inputs("rmsnorm", 9, T=64, D=1000,
+                              with_residual=True)
+    x, r, s = _on(a["x"], xdt, card), _on(a["residual"], odt, card), \
+        _on(a["scale"], odt, card)
+    y, res = _launched(rms.KERNEL, lambda: rms.fused_rmsnorm_cuda(
+        x, s, r, bt=64))
+    py, pres = rms.fused_rmsnorm_plain(x, s, r, bt=64)
+    _close(y, py, xdt)
+    assert torch.equal(res, pres)
+
+
+@pytest.mark.parametrize("xdt,wdt", MIXES)
+def test_grouped_matmul_operand_dtypes(card, xdt, wdt):
+    """Widened to float32 on the card, the CUDA-core kernel, one launch,
+    the output in x's dtype."""
+    a = samples.kernel_inputs("grouped_matmul", 9, E=3, C=100, D=72, F=40)
+    x, w = _on(a["x"], xdt, card), _on(a["w"], wdt, card)
+    plan = gmm.gmm_plan(3, 100, 72, 40, x.dtype, w_dtype=w.dtype)
+    assert (plan["route"], plan["upcast"]) == ("cuda cores", True)
+    got = _launched(gmm.KERNEL, lambda: gmm.grouped_matmul_cuda(x, w))
+    _close(got, gmm.grouped_matmul_plain(x, w, bc=100, bf=40, bd=72), xdt)
+
+
+@pytest.mark.parametrize("qdt,kvdt", MIXES)
+def test_flash_attention_operand_dtypes(card, qdt, kvdt):
+    """Widened to float32 on the card, the CUDA-core kernel with the kv
+    heads indexed, one launch, the output in q's dtype."""
+    BH, S, T, d, group = 8, 96, 200, 64, 2
+    a = samples.kernel_inputs("flash_attention", 9, q_shape=(BH, S, d),
+                              kv_shape=(BH // group, T, d))
+    q = _on(a["q"], qdt, card)
+    k, v = (_on(a[n], kvdt, card) for n in "kv")
+    plan = fa.attention_plan(BH, S, T, d, group, q.dtype, k.dtype, v.dtype)
+    assert (plan["kernel"], plan["upcast"], plan["launches"]) == (
+        "cuda cores", True, 1)
+    kw = dict(window=64, bq=S, bk=T)
+    got = _launched(fa.KERNEL, lambda: fa.flash_attention_cuda(
+        q, k, v, group=group, **kw))
+    kx, vx = (t.repeat_interleave(group, dim=0) for t in (k, v))
+    _close(got, fa.flash_attention_plain(q, kx, vx, **kw), qdt)

@@ -45,6 +45,8 @@ SOURCES = {"rms": "rmsnorm/csrc/rmsnorm.cu",
            "gmm": "grouped_matmul/csrc/grouped_matmul.cu",
            "fla": "flash_attention/csrc/flash_attention.cu"}
 BF16 = torch.bfloat16
+# the harness's dtype arguments
+TAG = {torch.float32: "f32", BF16: "bf16", torch.float16: "f16"}
 
 
 def kernel_half(cu: str, ns: str) -> str:
@@ -83,30 +85,31 @@ def harness(tmp_path_factory):
             outputs: dict) -> dict:
         work = Path(tmp_path_factory.mktemp(kernel))
         for name, t in inputs.items():
-            arr = t.view(torch.int16) if t.dtype == BF16 else t
+            arr = t.view(torch.int16) if t.element_size() == 2 else t
             arr.numpy().tofile(work / f"{name}.bin")
-        r = subprocess.run([str(exe), kernel,
-                            "bf16" if dtype == BF16 else "f32", str(work),
+        r = subprocess.run([str(exe), kernel, TAG[dtype], str(work),
                             *map(str, args)], capture_output=True,
                            text=True, timeout=300)
         assert r.returncode == 0, r.stderr
         res = {}
         for name, shape in outputs.items():
             raw = np.fromfile(work / f"{name}.bin",
-                              np.int16 if dtype == BF16 else np.float32)
+                              np.float32 if dtype == torch.float32
+                              else np.int16)
             t = torch.from_numpy(raw.reshape(shape))
-            res[name] = t.view(BF16) if dtype == BF16 else t
+            res[name] = t if dtype == torch.float32 else t.view(dtype)
         return res
     run.raw = raw
     run.workdir = lambda: Path(tmp_path_factory.mktemp("ptx"))
     return run
 
 
-DTYPES = {"float32": torch.float32, "bfloat16": BF16}
+DTYPES = {"float32": torch.float32, "bfloat16": BF16,
+          "float16": torch.float16}
 
 
 def _close(got, want, dtype: str) -> None:
-    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    tol = 2e-5 if dtype == "float32" else 2e-2
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=tol, atol=tol)
@@ -123,10 +126,32 @@ def test_rmsnorm_kernel_code(harness, T, D, with_residual, dtype):
     r = torch.from_numpy(a["residual"]).to(DTYPES[dtype]) \
         if with_residual else None
     ins = {"x": x, "scale": s, **({"r": r} if with_residual else {})}
-    got = harness("rmsnorm", x.dtype, ins, (T, D, int(with_residual), 1e-6),
+    got = harness("rmsnorm", x.dtype, ins,
+                  (T, D, int(with_residual), 1e-6, TAG[x.dtype]),
                   {"y": (T, D), "res": (T, D)})
     y, res = rms.fused_rmsnorm_plain(x, s, r, bt=T)
     _close(got["y"], y, dtype)
+    assert torch.equal(got["res"], res)
+
+
+@pytest.mark.parametrize("xdt,rdt,sdt", [
+    ("bfloat16", "float32", "float32"), ("float32", "bfloat16", "bfloat16"),
+    ("float16", "float16", "float16"), ("float16", "float32", "bfloat16"),
+    ("bfloat16", "float16", "float32")])
+def test_rmsnorm_kernel_code_mixed_dtypes(harness, xdt, rdt, sdt):
+    """x, the residual and scale each in their own dtype (ROADMAP C7):
+    the kernel reads each in its dtype and writes both outputs in x's,
+    as the plain version does."""
+    T, D = 4, 1000
+    a = samples.kernel_inputs("rmsnorm", 3, T=T, D=D, with_residual=True)
+    x = torch.from_numpy(a["x"]).to(DTYPES[xdt])
+    r = torch.from_numpy(a["residual"]).to(DTYPES[rdt])
+    s = torch.from_numpy(a["scale"]).to(DTYPES[sdt])
+    got = harness("rmsnorm", x.dtype, {"x": x, "r": r, "scale": s.float()},
+                  (T, D, 1, 1e-6, TAG[r.dtype]),
+                  {"y": (T, D), "res": (T, D)})
+    y, res = rms.fused_rmsnorm_plain(x, s, r, bt=T)
+    _close(got["y"], y, xdt)
     assert torch.equal(got["res"], res)
 
 
@@ -177,6 +202,26 @@ def test_grouped_matmul_wmma_kernel_code(harness, E, C, D, F):
     """The WMMA kernel, which gmm_plan keeps for operands TMA cannot
     describe, also at shapes the wgmma kernel takes."""
     _gmm(harness, E, C, D, F, "bfloat16", "wmma")
+
+
+@pytest.mark.parametrize("xdt,wdt", [("bfloat16", "float32"),
+                                     ("float16", "float16"),
+                                     ("float32", "float16")])
+def test_grouped_matmul_kernel_code_mixed_dtypes(harness, xdt, wdt):
+    """Mixed and float16 operands (ROADMAP C7) take the route the wrapper
+    gives them: widened to float32, the CUDA-core kernel, one cast of its
+    output to x's dtype, against the plain version on the operands as
+    given."""
+    E, C, D, F = 2, 100, 72, 40
+    a = samples.kernel_inputs("grouped_matmul", 4, E=E, C=C, D=D, F=F)
+    x = torch.from_numpy(a["x"]).to(DTYPES[xdt])
+    w = torch.from_numpy(a["w"]).to(DTYPES[wdt])
+    plan = gmm.gmm_plan(E, C, D, F, x.dtype, w_dtype=w.dtype)
+    assert (plan["route"], plan["upcast"]) == ("cuda cores", True)
+    got = harness("gmm", torch.float32, {"x": x.float(), "w": w.float()},
+                  (E, C, D, F, gmm.GMM_ROUTES["cuda cores"], plan["blocks"]),
+                  {"out": (E, C, F)})["out"].to(x.dtype)
+    _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), xdt)
 
 
 def _flash(harness, q, k, v, *, causal=True, window=0, group=1, nsplit=1):
@@ -260,6 +305,26 @@ def test_flash_attention_split_kv(harness, case, group, BH, S, T, d, window,
     _close(got, one, "bfloat16")
     if S > T:
         assert torch.equal(got[:, :S - T].float(), torch.zeros(BH, S - T, d))
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("bfloat16", "float32"),
+                                      ("float16", "float16"),
+                                      ("float32", "bfloat16")])
+def test_flash_attention_kernel_code_mixed_dtypes(harness, qdt, kvdt):
+    """Mixed and float16 operands (ROADMAP C7): widened to float32, the
+    CUDA-core kernel with ``group``, one cast to q's dtype, against the
+    plain version on the operands as given."""
+    BH, S, T, d, group = 4, 96, 160, 64, 2
+    a = samples.kernel_inputs("flash_attention", 5, q_shape=(BH, S, d),
+                              kv_shape=(BH // group, T, d))
+    q = torch.from_numpy(a["q"]).to(DTYPES[qdt])
+    k, v = (torch.from_numpy(a[n]).to(DTYPES[kvdt]) for n in "kv")
+    plan = fa.attention_plan(BH, S, T, d, group, q.dtype, k.dtype, v.dtype)
+    assert (plan["kernel"], plan["upcast"], plan["launches"]) == (
+        "cuda cores", True, 1)
+    got = _flash(harness, q.float(), k.float(), v.float(), window=40,
+                 group=group).to(q.dtype)
+    _close(got, _plain(q, k, v, group, window=40), qdt)
 
 
 def test_flash_attention_rows_not_of_whole_chunks(harness):

@@ -12,7 +12,9 @@ surface:
   * ``make_ingraph``, the in-graph write cursor and the merge back into
     host maps;
   * the dispatcher's emit table and collective entry points on a 1-rank
-    group (the multi-rank runs are in ``tests/test_torch_collectives.py``).
+    group (the multi-rank runs are in ``tests/test_torch_collectives.py``);
+  * ``launch.mesh.make_host_mesh``: a ``(1, n)`` mesh over the default
+    group, and the reference's requested-versus-available error.
 """
 
 import numpy as np
@@ -27,7 +29,7 @@ from repro_torch.core import PolicyRuntime, make_ctx
 from repro_torch.core.context import Algo, AxisKind, CollType, Proto
 from repro_torch.core.maps import MapRegistry
 from repro_torch.device import DeviceError
-from repro_torch.launch.mesh import mesh_topology
+from repro_torch.launch.mesh import make_host_mesh, mesh_topology
 from repro_torch.policies.mesh import topo_tuner
 
 KiB = 1 << 10
@@ -291,3 +293,40 @@ def test_entry_points_on_a_one_rank_group(one_rank_group):
                               dtype_bytes=4, axis_name="data")
             assert dataclasses.astuple(disp.decisions[-1]) == \
                 dataclasses.astuple(want), name
+
+
+def test_make_host_mesh_over_a_one_rank_gloo_group(one_rank_group):
+    """A (1, 1) ``("data", "model")`` mesh over the default group, whose
+    topology is the reference's ``make_host_mesh(1)``'s."""
+    import jax
+
+    from repro.launch.mesh import make_host_mesh as ref_make
+    from repro.launch.mesh import mesh_topology as ref_topology
+    mesh = make_host_mesh(1, device_type="cpu")
+    assert tuple(mesh.mesh.shape) == (1, 1)
+    assert mesh.mesh_dim_names == ("data", "model")
+    assert mesh.device_type == "cpu"
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = ref_topology(ref_make(1))
+    assert mesh_topology(mesh) == want
+
+
+@pytest.mark.parametrize("n,device_type", [(2, "cpu"), (4, "cpu"),
+                                           (1, "cuda")])
+def test_make_host_mesh_raises_rather_than_shrinking(one_rank_group, n,
+                                                     device_type):
+    """More ranks (or, for ``cuda``, more cards) than the process has:
+    ``ValueError`` naming what it has and how to get ``n`` ranks, as the
+    reference raises for devices, never a smaller mesh."""
+    if device_type == "cuda" and torch.cuda.device_count() >= n:
+        pytest.skip("this host has the cards")
+    with pytest.raises(ValueError) as e:
+        make_host_mesh(n, device_type=device_type)
+    msg = str(e.value)
+    assert f"needs {n} rank(s)" in msg and "1 rank(s)" in msg
+    assert "torchrun --nproc-per-node" in msg and "gloo" in msg
+
+
+def test_make_host_mesh_without_a_process_group():
+    with pytest.raises(ValueError, match="not initialized"):
+        make_host_mesh(1, device_type="cpu")

@@ -63,9 +63,12 @@ def fill_map(m: BpfMap, rng: np.random.Generator) -> None:
         raise ValueError(f"no seeding for map kind {m.kind}")
 
 
-def make_maps(prog: Program, rng: np.random.Generator) -> Dict[str, BpfMap]:
-    """Fresh, seeded host maps for ``prog``'s declarations."""
-    reg = MapRegistry()
+def make_maps(prog: Program, rng: np.random.Generator,
+              registry=None) -> Dict[str, BpfMap]:
+    """Fresh, seeded host maps for ``prog``'s declarations, created in
+    ``registry`` (a new port ``MapRegistry`` when None; pass the
+    reference's for its maps: the same seed fills both alike)."""
+    reg = MapRegistry() if registry is None else registry
     out = {}
     for d in prog.maps:
         m = reg.create(d.name, d.kind, key_size=d.key_size,
@@ -98,6 +101,47 @@ def make_ctx(prog: Program, rng: np.random.Generator) -> bytearray:
             buf[f.offset:f.offset + 8] = _field_value(name, rng).to_bytes(
                 8, "little")
     return buf
+
+
+# ---------------------------------------------------------------------------
+# the §5.3 closed loop, on either package's dispatcher
+# ---------------------------------------------------------------------------
+
+def decision_stream(n: int, seed: int = 5) -> list:
+    """``n`` seeded ``(coll, size, axis, latency_ns)`` decide-and-feed
+    steps: 4 KiB - 1 GiB messages over three axes."""
+    rng = np.random.default_rng(seed)
+    return list(zip(rng.choice([0, 1, 2], n).tolist(),
+                    np.left_shift(1, rng.integers(12, 31, n)).tolist(),
+                    rng.choice(["dp", "tp", "ep"], n).tolist(),
+                    rng.integers(2_000, 3_000_000, n).tolist()))
+
+
+def drive_closed_loop(CollectiveDispatcher, pols, tier: str, stream):
+    """The §5.3 closed loop on ``CollectiveDispatcher(tier=tier)`` of one
+    package (``pols`` its policies): bucket_tuner and adapt_tuner on the
+    tuner chain, adapt_profiler and bucket_profiler fed after every
+    decision, a ``link.replace()`` of the tuner half way.  Returns the
+    decisions as tuples, every final map's bytes and the runtime."""
+    disp = CollectiveDispatcher(tier=tier)
+    rt = disp.runtime
+    tune = rt.attach(pols.bucket_tuner.program, priority=0)
+    rt.attach(pols.adapt_tuner.program, priority=1)
+    rt.attach(pols.adapt_profiler.program)
+    rt.attach(pols.bucket_profiler.program)
+    out = []
+    for i, (coll, size, axis, lat) in enumerate(stream):
+        if i == len(stream) // 2:
+            tune.replace(pols.bucket_tuner.program)
+        d = disp.decide(coll, size, 8, axis_name=axis)
+        out.append(dataclasses.astuple(d))
+        disp.profiler_feed(d.comm_id, lat, coll=d.coll,
+                           msg_size=d.size_bytes, channels=d.channels,
+                           algo=d.algo)
+    rt.flush_bridges()
+    maps = {n: rt.maps.get(n).to_device().tobytes()
+            for n in sorted(rt.maps.names())}
+    return out, maps, rt
 
 
 # ---------------------------------------------------------------------------
