@@ -100,7 +100,27 @@ Phases (any failure exits non-zero and prints no result line):
    on phase 5's cuda runtime (the profiler suite attached) over 2,000
    more decisions, its ``Exporter`` lines valid by the exporter's own
    validator, its histogram counting every decision, and both equal to
-   the same run's on interp.  Nothing in the phase is caught.
+   the same run's on interp.  Nothing in the phase is caught;
+12. the model zoo and the serving engine — qwen3-1.7b at full width and
+   depth (28 layers, D 2048, V 151,936, bf16; weights from the port's
+   ``init_params`` seeded on the card, cast once to bf16 by the engine)
+   served by ``ServeEngine`` (8 slots x 512 ctx, 16 requests of 16-64
+   prompt tokens, 32 new tokens each) while the §5.3 loop runs on
+   ``tier="cuda"`` as ``examples/serve_adaptive_torch.py`` attaches it:
+   each tick's latency fed to ``adapt_profiler`` (one B1 launch per
+   feed), then one ``adapt_tuner`` decision (one launch), launch counts
+   set to 0 just before the run and read just after; every request done
+   with 32 tokens in fewer ticks than serial, one prompt in two slots
+   giving the same tokens, the latency stream replayed on ``interp``
+   giving the same ``adapt_map`` bytes and ``Decision``, 0 host
+   fallbacks, 0 uploads over 100 warm repeat decisions, 0 model-kernel
+   launches (the models call none); a 64-token prompt's decode logits
+   within 2^-2 rms of ``forward_logits`` per element and 2^-5 rms over
+   all, with the greedy tokens equal wherever the top-2 margin exceeds
+   the per-element limit, beside bf16's own distance from the f32
+   forward; tick p50/p99, tokens/s, ``prefill`` at B 1 x S 2048 and the
+   peak memory; the two policy kernels of the path timed beside their
+   bound and plain version.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -109,6 +129,7 @@ limit, and the device record; the full record also goes to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -118,6 +139,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(1, os.path.join(ROOT, "tests"))   # torch_samples
+sys.path.insert(2, os.path.join(ROOT, "examples"))  # serve_adaptive_torch
 
 N_DECISIONS = 10_000
 N_SAMPLES = 8           # ctx samples per policy in the differential phase
@@ -1693,6 +1715,372 @@ def recorder_run(run: dict, n: int = N_RECORDED) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the model zoo and the serving engine
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-1.7b"   # full width and depth: 28 layers, D 2048,
+                            # H 16 / KV 8, hd 128, F 6144, V 151,936, bf16
+SERVE_SLOTS = 8
+SERVE_CTX = 512
+SERVE_REQUESTS = 16
+SERVE_NEW = 32
+SERVE_PROMPTS = (16, 64)    # prompt lengths, drawn from this range
+PREFILL_TOKENS = 2048       # prefill timed at B 1 x S 2048
+CHECK_TOKENS = 64           # the decode-against-forward prompt
+CHECK_SEED = 23
+# Decode against forward, both in bf16: the two paths round every matmul,
+# norm and residual add to bf16, in other summation orders (one token
+# against 64 at once), so each carries bf16's own error against f32.
+# Per element |decode - forward| <= 2^-2 rms(forward), and over all
+# elements rms(decode - forward) <= 2^-5 rms(forward).  On the CPU at 28
+# layers, a decode that hides its newest key misses both by 25x or more,
+# one that scales each attention output by 0.98 misses the second.
+DECODE_LIMIT = 2.0 ** -2
+DECODE_RMS_LIMIT = 2.0 ** -5
+N_WARM_DECIDE = 100         # repeat decisions that must upload nothing
+
+
+def serve_axes():
+    from repro_torch.models.layers import MeshAxes
+    return MeshAxes(tp=1, dp=1, fsdp=False)
+
+
+def serving_prompts(vocab: int, n: int, lo: int, hi: int, seed: int) -> list:
+    """``n`` seeded prompts of ``lo``-``hi`` tokens; the second repeats the
+    first, so the two run in two slots from the same tick."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(n)]
+    prompts[1] = list(prompts[0])
+    return prompts
+
+
+def serve_with_loop(cfg, params, dev, tier: str, *, slots: int, ctx: int,
+                    n_requests: int, max_new: int, prompt_lens: tuple,
+                    seed: int = 17) -> dict:
+    """The slice's main path: a ``ServeEngine`` serving ``n_requests``
+    while the §5.3 loop runs on ``tier``, attached as
+    ``examples/serve_adaptive_torch.py`` attaches it (each tick's latency
+    fed to ``adapt_profiler``, then one ``adapt_tuner`` decision).  Every
+    policy kernel's launch count is set to 0 just before and read just
+    after; then ``N_WARM_DECIDE`` repeat decisions count map uploads."""
+    import serve_adaptive_torch as ex
+
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    rt, disp = ex.attach_loop(tier)
+    bridges = [l.fn for s in rt.sections() for l in rt.chain(s)
+               if hasattr(l.fn, "kernel")]
+    eng = ServeEngine(cfg, params, serve_axes(),
+                      ServeConfig(batch_slots=slots, max_ctx=ctx),
+                      device=dev)
+    prompts = serving_prompts(cfg.vocab, n_requests, *prompt_lens, seed)
+    reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+    for b in bridges:
+        b.kernel.launches = 0
+    t0 = time.perf_counter()
+    lat = ex.serve(eng, disp)
+    d = ex.decide(disp)
+    wall = time.perf_counter() - t0
+    launches = {b.kernel.name: b.kernel.launches for b in bridges}
+    stats = {b.kernel.name: {"calls": b.stats.calls,
+                             "host_fallbacks": b.stats.host_fallbacks}
+             for b in bridges}
+    rt.flush_bridges()
+    amap = rt.maps.get("adapt_map").to_device().tobytes()
+    samples = ex.samples(rt)
+    live = [l.fn for l in rt.chain("tuner")]
+    before = sum(b.stats.map_uploads for b in live)
+    for _ in range(N_WARM_DECIDE):
+        ex.decide(disp)
+    warm = sum(b.stats.map_uploads for b in live) - before
+    return {"engine": eng, "disp": disp, "reqs": reqs, "prompts": prompts,
+            "lat_ns": lat,
+            "wall_s": wall, "decision": d, "adapt_map": amap,
+            "samples": samples, "launches": launches, "stats": stats,
+            "warm_uploads": warm, "bridges": bridges}
+
+
+def replay_loop(lat_ns: list) -> dict:
+    """The same latency stream fed to a fresh loop on ``interp``, then the
+    same decision: its ``adapt_map`` bytes and ``Decision``."""
+    import serve_adaptive_torch as ex
+
+    rt, disp = ex.attach_loop("interp")
+    for t in lat_ns:
+        ex.feed(disp, t)
+    d = ex.decide(disp)
+    rt.flush_bridges()
+    return {"decision": d,
+            "adapt_map": rt.maps.get("adapt_map").to_device().tobytes()}
+
+
+def check_serving(run: dict, replay: dict, vocab: int, max_new: int) -> dict:
+    """Fail unless every request finished with ``max_new`` in-vocabulary
+    tokens in fewer ticks than serial, the repeated prompt gave the same
+    tokens in both slots, and the loop equals its replay (map bytes and
+    decision); the loop's counts."""
+    reqs = run["reqs"]
+    ticks = len(run["lat_ns"])
+    serial = sum(len(p) + max_new for p in run["prompts"])
+    check(all(r.done and len(r.out) == max_new for r in reqs),
+          f"requests unfinished: {[(r.rid, len(r.out)) for r in reqs]}")
+    check(all(0 <= t < vocab for r in reqs for t in r.out),
+          "a token outside the vocabulary")
+    check(ticks == run["engine"].steps and ticks < serial,
+          f"{ticks} ticks, serial {serial}")
+    check(reqs[0].out == reqs[1].out,
+          f"one prompt in two slots gave {reqs[0].out} and {reqs[1].out}")
+    check(run["adapt_map"] == replay["adapt_map"],
+          "adapt_map differs from the replay's")
+    check(run["decision"] == replay["decision"],
+          f"decision {run['decision']} against the replay's "
+          f"{replay['decision']}")
+    check(run["samples"] == ticks,
+          f"{run['samples']} profiler samples for {ticks} ticks")
+    return {"ticks": ticks, "serial": serial,
+            "tokens": sum(len(r.out) for r in reqs),
+            "prompt_tokens": sum(len(p) for p in run["prompts"])}
+
+
+def decode_against_forward(cfg, params, dev, n_tokens: int = CHECK_TOKENS,
+                           ctx: int = SERVE_CTX) -> dict:
+    """One ``n_tokens`` prompt through the decode path (one token per
+    step from empty caches) and through ``forward_logits``: fail unless
+    the logits meet ``DECODE_LIMIT`` per element and ``DECODE_RMS_LIMIT``
+    over all, and the greedy tokens agree wherever the forward pass's
+    top-2 margin exceeds the per-element limit."""
+    import torch
+
+    from repro_torch.models import forward_logits
+    from repro_torch.models.transformer import _decode_logits, init_caches
+
+    ax = serve_axes()
+    g = torch.Generator().manual_seed(CHECK_SEED)
+    tok = torch.randint(0, cfg.vocab, (1, n_tokens), generator=g).to(dev)
+    with torch.no_grad():
+        fwd = forward_logits(params, {"tokens": tok}, cfg, ax)[0][0].float()
+        caches = init_caches(params, cfg, 1, ctx, ax)
+        dec = []
+        for i in range(n_tokens):
+            pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+            lg, caches = _decode_logits(params, tok[:, i:i + 1], caches, pos,
+                                        cfg, ax)
+            dec.append(lg[0, 0].float())
+        dec = torch.stack(dec)
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
+          "non-finite logits")
+    rms = float(fwd.square().mean().sqrt())
+    diff = dec - fwd
+    err, err_rms = float(diff.abs().amax()), float(diff.square().mean().sqrt())
+    limit = DECODE_LIMIT * rms
+    top2 = torch.topk(fwd, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > limit
+    same = dec.argmax(-1) == fwd.argmax(-1)
+    out = {"rms": rms, "max_err": err, "rms_err": err_rms, "limit": limit,
+           "err_over_limit": err / limit,
+           "rms_err_over_limit": err_rms / (DECODE_RMS_LIMIT * rms),
+           "positions": n_tokens, "sure_positions": int(sure.sum()),
+           "tokens_equal": int(same.sum())}
+    check(err <= limit, f"decode off forward by {err:.4g} > {limit:.4g} "
+          f"(2^-2 rms {rms:.4g})")
+    check(err_rms <= DECODE_RMS_LIMIT * rms,
+          f"decode off forward by rms {err_rms:.4g} > 2^-5 rms {rms:.4g}")
+    check(bool(same[sure].all()), f"greedy tokens differ where the margin "
+          f"exceeds the limit: {out}")
+    return out
+
+
+def bf16_floor(cfg, params32, params, dev,
+               n_tokens: int = CHECK_TOKENS) -> dict:
+    """bf16 ``forward_logits`` (on ``params``, the serving copy) against
+    the f32 forward on the f32 master weights (TF32 off): the size of
+    bf16's own error, beside which the decode limit is set."""
+    import torch
+
+    from repro_torch.models import forward_logits
+
+    ax = serve_axes()
+    g = torch.Generator().manual_seed(CHECK_SEED)
+    tok = torch.randint(0, cfg.vocab, (1, n_tokens), generator=g).to(dev)
+    with torch.no_grad():
+        f32 = forward_logits(params32, {"tokens": tok},
+                             cfg.with_overrides(dtype="float32"), ax)[0][0]
+        bf = forward_logits(params, {"tokens": tok}, cfg, ax)[0][0].float()
+    rms = float(f32.square().mean().sqrt())
+    return {"max_over_rms": float((bf - f32).abs().amax()) / rms,
+            "rms_over_rms": float((bf - f32).square().mean().sqrt()) / rms}
+
+
+def serving_trace(eng, disp, n_ticks: int = 10, seed: int = 31) -> dict:
+    """A ``torch.profiler`` trace of ``n_ticks`` engine ticks (with their
+    profiler feeds) on a refilled engine: the device's busy share, the
+    device events per tick and the six largest kernels by device time."""
+    import serve_adaptive_torch as ex
+
+    for p in serving_prompts(eng.cfg.vocab, eng.scfg.batch_slots, 16, 16,
+                             seed):
+        eng.submit(p, max_new=n_ticks)
+
+    def run():
+        for _ in range(n_ticks):
+            t0 = time.perf_counter_ns()
+            eng.step()
+            ex.feed(disp, time.perf_counter_ns() - t0)
+    trace = device_trace(run, n_ticks)
+    eng.run_until_drained()
+    top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["us"])[:6]
+    return {"ticks": n_ticks, "busy_share": trace["busy_share"],
+            "wall_us_per_tick": trace["wall_us"] / n_ticks,
+            "busy_us_per_tick": trace["busy_us"] / n_ticks,
+            "events_per_tick": sum(v["count"] for v in
+                                   trace["by_name"].values()) / n_ticks,
+            "top": {k: v["us"] / n_ticks for k, v in top}}
+
+
+def prefill_ms(cfg, params, dev, n_tokens: int = PREFILL_TOKENS) -> float:
+    """Device time of one ``prefill`` at B 1 x S ``n_tokens`` (CUDA
+    events around 5 calls after a warm-up)."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    g = torch.Generator().manual_seed(29)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, n_tokens),
+                                     generator=g).to(dev)}
+    with torch.no_grad():
+        out = prefill(params, batch, cfg, serve_axes())
+        check(tuple(out.shape) == (1, 1, cfg.vocab)
+              and bool(torch.isfinite(out.float()).all()),
+              f"prefill gave {tuple(out.shape)}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            prefill(params, batch, cfg, serve_axes())
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / 5
+
+
+def serving_main_path(dev, lib, empty_ms: float, smi: str) -> tuple:
+    """Phase 12 on the card: full-width ``SERVE_ARCH`` served with the
+    §5.3 loop on ``tier="cuda"`` (launch counts set to 0 just before the
+    serving run and read just after), held to its interp replay; decode
+    against forward; prefill time and peak memory; each policy kernel of
+    the path timed beside its bound and plain version.  The kernels-line
+    rows and the phase's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_map
+
+    t0 = time.time()
+    # bf16 GEMMs accumulate in f32 and round once, as the reference's
+    # einsums do (no reduced-precision reductions inside cuBLAS), and the
+    # f32 forward stays f32 (no TF32)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve_cfg = get_config(SERVE_ARCH)
+    params32, _ = init_params(12, serve_cfg, serve_axes(), device=dev)
+    n_params = []
+    tree_map(lambda a: n_params.append(a.numel()), params32)
+    model_k = list(model_kernels().values())
+    for k in model_k:
+        k.launches = 0
+    serving = serve_with_loop(serve_cfg, params32, dev, "cuda",
+                              slots=SERVE_SLOTS, ctx=SERVE_CTX,
+                              n_requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                              prompt_lens=SERVE_PROMPTS)
+    model_launches = sum(k.launches for k in model_k)
+    check(model_launches == 0, f"{model_launches} model-kernel launches on "
+          "the serving path (the models call none, ROADMAP C6)")
+    replay = replay_loop(serving["lat_ns"])
+    counts = check_serving(serving, replay, serve_cfg.vocab, SERVE_NEW)
+    ticks = counts["ticks"]
+    check(serving["launches"] == {"adapt_tuner": 1, "adapt_profiler": ticks},
+          f"policy kernel launches {serving['launches']} for {ticks} feeds "
+          "and 1 decision")
+    for n, st in serving["stats"].items():
+        check(st["calls"] == serving["launches"][n]
+              and st["host_fallbacks"] == 0,
+              f"{n}: bridge stats {st}, launches {serving['launches'][n]}")
+    check(serving["warm_uploads"] == 0,
+          f"{serving['warm_uploads']} uploads on warm repeat decisions")
+    serve_params = serving["engine"].params
+    dvf = decode_against_forward(serve_cfg, serve_params, dev)
+    floor = bf16_floor(serve_cfg, params32, serve_params, dev)
+    pf_ms = prefill_ms(serve_cfg, serve_params, dev)
+    peak = torch.cuda.max_memory_allocated()
+    trace = serving_trace(serving["engine"], serving["disp"])
+    tick = {"p50_ms": pct(serving["lat_ns"], 50) / 1e6,
+            "p99_ms": pct(serving["lat_ns"], 99) / 1e6}
+    tok_s = counts["tokens"] / serving["wall_s"]
+    rows = []
+    for b in serving["bridges"]:
+        n = b.kernel.name
+        t = kernel_timing(lib, b.kernel, b._io[:b.kernel.n_fields].clone(),
+                          {m: v.clone() for m, v in b._dev.items()})
+        check(t["max_abs_err"] == 0, f"{n}: kernel disagrees on the "
+              f"serving-path state (max abs err {t['max_abs_err']})")
+        rows.append({"name": f"policy_kernel[{n}]@serving", "route": "cuda",
+                     "source": KERNEL_SOURCE, "replaces": REPLACES,
+                     "launches": serving["launches"][n],
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
+                     "bound_by": "launch", "library_ms": None})
+    serve_s = time.time() - t0
+    d = serving["decision"]
+    log(f"[serve] {SERVE_ARCH} at full width ({serve_cfg.n_layers} layers, "
+        f"D {serve_cfg.d_model}, {sum(n_params) / 1e9:.3f} B params, "
+        f"bf16), ServeEngine {SERVE_SLOTS} slots x {SERVE_CTX} ctx: "
+        f"{SERVE_REQUESTS} requests of {counts['prompt_tokens']} prompt "
+        f"tokens, {counts['tokens']} generated in {ticks} ticks (serial "
+        f"{counts['serial']}); the repeated prompt gave the same tokens in "
+        f"two slots; tick p50 {tick['p50_ms']:.3f} ms p99 "
+        f"{tick['p99_ms']:.3f} ms; {tok_s:.1f} generated tokens/s; prefill "
+        f"B 1 x S {PREFILL_TOKENS} {pf_ms:.3f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB; model-kernel launches 0; {smi}")
+    log(f"[serve loop] tier cuda: B1 launches adapt_profiler "
+        f"{serving['launches']['adapt_profiler']} (one per tick's feed), "
+        f"adapt_tuner {serving['launches']['adapt_tuner']} (one decision: "
+        f"algo {d.algo} proto {d.proto} channels {d.channels} from "
+        f"{serving['samples']} samples); host fallbacks 0; warm uploads 0 "
+        f"over {N_WARM_DECIDE} repeat decisions; adapt_map bytes and the "
+        f"Decision identical to the interp replay")
+    log(f"[serve decode] {CHECK_TOKENS}-token prompt, decode against "
+        f"forward_logits: max |diff| {dvf['max_err']:.4g} "
+        f"({dvf['err_over_limit']:.3f} of 2^-2 rms, rms {dvf['rms']:.4g}), "
+        f"rms diff {dvf['rms_err']:.4g} ({dvf['rms_err_over_limit']:.3f} "
+        f"of 2^-5 rms); greedy tokens equal at {dvf['tokens_equal']}/"
+        f"{dvf['positions']} positions, all {dvf['sure_positions']} with a "
+        f"top-2 margin over the limit; bf16 forward against the f32 "
+        f"forward: max {floor['max_over_rms']:.4f} rms, rms "
+        f"{floor['rms_over_rms']:.4f} rms ({serve_s:.1f} s for the phase)")
+    log(f"[serve trace] {trace['ticks']} ticks of 8 busy slots under "
+        f"torch.profiler: {trace['wall_us_per_tick']:.0f} us per tick, the "
+        f"device busy {trace['busy_us_per_tick']:.0f} us of it "
+        f"({100 * trace['busy_share']:.2f}%), "
+        f"{trace['events_per_tick']:.0f} device events per tick; largest "
+        f"us per tick: " + "; ".join(f"{k[:60]} {v:.1f}"
+                                     for k, v in trace["top"].items()))
+    record = {"arch": SERVE_ARCH, "params": sum(n_params), "counts": counts,
+              "tick_ms": tick, "tokens_per_s": tok_s, "prefill_ms": pf_ms,
+              "prefill_tokens": PREFILL_TOKENS, "peak_bytes": peak,
+              "launches": serving["launches"],
+              "decision": dataclasses.asdict(d),
+              "decode_against_forward": dvf, "bf16_floor": floor,
+              "trace": trace, "seconds": serve_s}
+    return rows, record
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2052,6 +2440,10 @@ def main() -> int:
         f"validator; histogram and records identical to interp's "
         f"({host_s:.1f} s for the phase)")
 
+    # ---- 12. the model zoo and the serving engine --------------------------
+    serve_rows, serving = serving_main_path(dev, lib, empty_ms, smi)
+    table.extend(serve_rows)
+
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
@@ -2080,6 +2472,7 @@ def main() -> int:
                              "recorder": {k: v for k, v in obs["cuda"].items()
                                           if k != "stragglers"},
                              "seconds": host_s},
+              "serving": serving,
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

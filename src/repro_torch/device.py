@@ -62,3 +62,9 @@ def require_cuda(what: str) -> torch.device:
             "on the CPU) or tier='interp' (the reference interpreter) to "
             "run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card
+    (:func:`require_cuda`), so CPU callers pass ``device="cpu"``."""
+    return require_cuda(what) if device is None else torch.device(device)

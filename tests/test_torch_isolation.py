@@ -42,7 +42,14 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.kernels.grouped_matmul.ops",
            "repro_torch.kernels.flash_attention.ref",
            "repro_torch.kernels.flash_attention.kernel",
-           "repro_torch.kernels.flash_attention.ops"]
+           "repro_torch.kernels.flash_attention.ops",
+           "repro_torch.configs", "repro_torch.models",
+           "repro_torch.models.config", "repro_torch.models.layers",
+           "repro_torch.models.attention", "repro_torch.models.mlp",
+           "repro_torch.models.moe", "repro_torch.models.recurrent",
+           "repro_torch.models.transformer", "repro_torch.models.convert",
+           "repro_torch.models.lm", "repro_torch.serve",
+           "repro_torch.serve.engine"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():
