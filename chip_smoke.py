@@ -120,7 +120,33 @@ Phases (any failure exits non-zero and prints no result line):
    the per-element limit, beside bf16's own distance from the f32
    forward; tick p50/p99, tokens/s, ``prefill`` at B 1 x S 2048 and the
    peak memory; the two policy kernels of the path timed beside their
-   bound and plain version.  Nothing in the phase is caught.
+   bound and plain version.  Nothing in the phase is caught;
+13. the training path — tinyllama-1.1b at full width and depth (22
+   layers, D 2048, H 32 / KV 4, F 5632, V 32,000; bf16 activations, f32
+   master weights from the port's ``init_params`` seeded on the card,
+   ``remat``) trained by ``Trainer`` for 12 steps of B 8 x S 2048 (lr
+   3e-4, 3 warmup steps) while the §5.3 loop runs on ``tier="cuda"``
+   (each step's latency fed to ``adapt_profiler``, one B1 launch per
+   step, launch counts set to 0 just before the run and read just
+   after); a checkpoint at step 6, then the tuner's link replaced warm
+   (the trainer rebuilds its step once, no step lost); one
+   ``adapt_tuner`` decision after the run.  Checks: every loss finite,
+   step 1 within 0.15 of ln V + sigma^2/2 (sigma measured on step 1's
+   logits), the last three losses below the first three; step 1 in bf16
+   within 1e-3 (loss) and 2e-2 (``grad_norm``) of the same params' f32
+   evaluation; a fresh ``Trainer`` restored from step 6 reaches the
+   unbroken run's params and moments bit for bit (deterministic
+   algorithms on); the feeds replayed on ``interp`` give the same
+   ``adapt_map`` bytes and ``Decision``; 0 host fallbacks.  Printed: step
+   p50/p99, tokens/s, model FLOP/s as a share of 989 TFLOP/s, peak
+   memory, a ``torch.profiler`` step's busy share and top device ops, and
+   B1 timed on the trainer's state (``@training`` rows).  Then a
+   ``dp = 2`` leg: 2 ``gloo`` ranks at smoke width with FSDP on the bf16
+   wire and ``size_aware`` on ``tier="cuda"`` (state on cuda:0, payloads
+   on the host), gradient sync bucketed and not: params and moments
+   within 2e-2 of a 1-rank run after 3 steps, B1 launches equal to the
+   decisions the decision cache did not serve, every collective running
+   the algorithm its decision named.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -131,7 +157,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2081,8 +2109,471 @@ def serving_main_path(dev, lib, empty_ms: float, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama-1.1b"   # full width and depth: 22 layers, D 2048,
+                                # H 32 / KV 4, hd 64, F 5632, V 32,000
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8                 # 16,384 tokens per step
+TRAIN_STEPS = 12
+TRAIN_WARMUP = 3
+TRAIN_LR = 3e-4
+RESUME_AT = 6                   # save here; the tuner's link is replaced
+# step 1's loss against ln V + sigma^2 / 2 (logits of spread sigma that
+# carry no information about the label)
+LOSS_WINDOW = 0.15
+# the first step in bf16 against the same params' f32 evaluation on the
+# same batch: bf16 rounds every activation to 8 significant bits, which
+# moves a mean over 16,384 tokens far less than one token's loss (the
+# CPU at 4 layers, D 512, V 32,000: 4.3e-5 relative for both)
+BF16_LOSS_RTOL = 1e-3
+BF16_GNORM_RTOL = 2e-2
+PEAK_BF16_FLOPS = 989e12        # NVIDIA H100 SXM data sheet (700 W)
+# the resume checkpoint (13 GB: f32 params, m and v) in the checkout's
+# ignored build directory, removed when the phase ends
+TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
+# the dp = 2 leg gathers on the bf16 wire: params and moments within 2e-2
+# of the 1-rank run, per leaf in norm (tests/test_torch_train_mesh.py)
+DP2_TOL = 2e-2
+
+
+def train_configs():
+    """(model config with remat, trainer config) of the phase's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train import AdamWConfig, TrainerConfig, TrainStepConfig
+
+    cfg = get_config(TRAIN_ARCH).with_overrides(remat=True)
+    tcfg = TrainerConfig(
+        steps=TRAIN_STEPS, log_every=10 ** 9, seed=13,
+        ckpt_dir=TRAIN_CKPT,
+        data=DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH),
+        step=TrainStepConfig(opt=AdamWConfig(lr=TRAIN_LR),
+                             total_steps=TRAIN_STEPS,
+                             warmup_steps=TRAIN_WARMUP))
+    return cfg, tcfg
+
+
+class FeedLog:
+    """Records every ``profiler_feed`` the trainer makes on ``disp``, for
+    the replay."""
+
+    def __init__(self, disp):
+        self.calls: list = []
+        feed_fn = disp.profiler_feed
+
+        def recorded(comm_id, latency_ns, **kw):
+            self.calls.append((comm_id, latency_ns, kw))
+            feed_fn(comm_id, latency_ns, **kw)
+        disp.profiler_feed = recorded
+
+
+def first_step_eval(tr, batch) -> dict:
+    """Step 1's inputs evaluated apart from the trainer: the bf16 loss and
+    ``grad_norm`` of the initial params (the step's own config), the same
+    params' f32 evaluation, and the spread of the bf16 logits."""
+    import torch
+
+    from repro_torch.models import forward_logits
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import local_batch, loss_and_grads
+
+    b = local_batch(batch, tr.cfg, tr.ax, tr.device)
+    out = {}
+    for name, cfg in (("bf16", tr.cfg),
+                      ("f32", tr.cfg.with_overrides(dtype="float32"))):
+        loss, g = loss_and_grads(tr.params, b, cfg, tr.ax, tr.param_specs)
+        out[name] = {"loss": float(loss), "grad_norm": float(global_norm(g))}
+        del g
+    with torch.no_grad():
+        lg = forward_logits(tr.params, {"tokens": b["tokens"][:1]}, tr.cfg,
+                            tr.ax)[0].float()
+        l32 = forward_logits(tr.params, {"tokens": b["tokens"][:1]},
+                             tr.cfg.with_overrides(dtype="float32"),
+                             tr.ax)[0]
+        rms = float(l32.square().mean().sqrt())
+        out["sigma"] = float(lg.std())
+        out["logits_rms_over_rms"] = float(
+            (lg - l32).square().mean().sqrt()) / rms
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_state(tr) -> list:
+    """The trainer's params, m and v, copied to the host, in tree order."""
+    from repro_torch.models.transformer import tree_leaves
+    return [t.detach().cpu() for t in tree_leaves(
+        {"p": tr.params, "m": tr.opt_state["m"], "v": tr.opt_state["v"]})]
+
+
+def train_with_loop(dev, tier: str) -> dict:
+    """The slice's main path: full-width ``TRAIN_ARCH`` trained by
+    ``Trainer`` for ``TRAIN_STEPS`` while the §5.3 loop runs on ``tier``
+    (attached as ``examples/serve_adaptive_torch.py`` attaches it: each
+    step's latency fed to ``adapt_profiler``); a checkpoint at
+    ``RESUME_AT``, then the tuner's link replaced warm; one
+    ``adapt_tuner`` decision after the run.  Every policy kernel's launch
+    count is set to 0 just before the run and read just after."""
+    import torch
+
+    import serve_adaptive_torch as ex
+
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.policies import adapt_tuner
+    from repro_torch.train import Trainer
+
+    cfg, tcfg = train_configs()
+    rt, disp = ex.attach_loop(tier)
+    feeds = FeedLog(disp)
+    bridges = [l.fn for s in rt.sections() for l in rt.chain(s)
+               if hasattr(l.fn, "kernel")]
+    tr = Trainer(cfg, serve_axes(), None, tcfg, device=dev)
+    n_params = []
+    tree_map(lambda a: n_params.append(a.numel()), tr.params)
+    first = first_step_eval(tr, SyntheticLMDataset(cfg, tcfg.data).batch(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in bridges:
+        b.kernel.launches = 0
+    t0 = time.perf_counter()
+    tr.run(steps=RESUME_AT)
+    t_save = time.perf_counter()
+    tr.save()
+    save_s = time.perf_counter() - t_save
+    link = rt.chain("tuner")[0]
+    link.replace(adapt_tuner.program)
+    bridges.append(link.fn)             # the new link's bridge, counted
+    link.fn.kernel.launches = 0         # from 0 as the others were
+    tr.run(steps=TRAIN_STEPS - RESUME_AT)
+    d = ex.decide(disp)
+    wall = time.perf_counter() - t0 - save_s
+    launches, stats = {}, {}
+    for k in {id(b.kernel): b.kernel for b in bridges}.values():
+        launches[k.name] = launches.get(k.name, 0) + k.launches
+    for b in bridges:
+        st = stats.setdefault(b.kernel.name,
+                              {"calls": 0, "host_fallbacks": 0})
+        st["calls"] += b.stats.calls
+        st["host_fallbacks"] += b.stats.host_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    rt.flush_bridges()
+    amap = rt.maps.get("adapt_map").to_device().tobytes()
+    samples = rt.maps.get("adapt_map").lookup_u64(0, 2)
+    live = {l.fn.kernel.name: l.fn for s in rt.sections()
+            for l in rt.chain(s)}
+    return {"trainer": tr, "cfg": cfg, "tcfg": tcfg, "rt": rt, "disp": disp,
+            "feeds": list(feeds.calls), "decision": d, "adapt_map": amap,
+            "samples": samples, "launches": launches, "stats": stats,
+            "peak": peak, "wall_s": wall, "save_s": save_s,
+            "first": first, "n_params": sum(n_params), "live": live}
+
+
+def replay_training_loop(feeds: list) -> dict:
+    """The trainer's feeds, replayed on a fresh ``interp`` loop with the
+    tuner's link replaced at the same point, then the same decision."""
+    import serve_adaptive_torch as ex
+
+    from repro_torch.policies import adapt_tuner
+
+    rt, disp = ex.attach_loop("interp")
+    for i, (comm_id, lat, kw) in enumerate(feeds):
+        if i == RESUME_AT:
+            rt.chain("tuner")[0].replace(adapt_tuner.program)
+        disp.profiler_feed(comm_id, lat, **kw)
+    d = ex.decide(disp)
+    rt.flush_bridges()
+    return {"decision": d,
+            "adapt_map": rt.maps.get("adapt_map").to_device().tobytes()}
+
+
+def resume_check(run: dict, dev) -> dict:
+    """A fresh ``Trainer`` restored from the ``RESUME_AT`` checkpoint runs
+    the remaining steps: its params and moments against the unbroken
+    run's, bit for bit."""
+    import torch
+
+    from repro_torch.train import Trainer
+
+    tr = run["trainer"]
+    want = host_state(tr)
+    losses = [m["loss"] for m in tr.metrics_log]
+    run["trainer"] = None
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr2 = Trainer(run["cfg"], serve_axes(), None, run["tcfg"], device=dev)
+    check(tr2.maybe_restore() and tr2.step_idx == RESUME_AT,
+          f"restore gave step {tr2.step_idx}")
+    load_s = time.perf_counter() - t0
+    tr2.run(steps=TRAIN_STEPS - RESUME_AT)
+    got = host_state(tr2)
+    differ = sum(not torch.equal(a, b) for a, b in zip(want, got))
+    worst = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    tail = [m["loss"] for m in tr2.metrics_log]
+    check(differ == 0, f"resumed run differs from the unbroken one in "
+          f"{differ} of {len(want)} leaves (max abs {worst:.3g})")
+    check(tail == losses[RESUME_AT:],
+          f"resumed losses {tail} against {losses[RESUME_AT:]}")
+    return {"trainer": tr2, "leaves": len(want), "differ": differ,
+            "load_s": load_s}
+
+
+def training_trace(tr) -> dict:
+    """A ``torch.profiler`` trace of one more training step: the device's
+    busy share and the eight largest device ops."""
+    trace = device_trace(lambda: tr.run(steps=1), 1)
+    top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["us"])[:8]
+    return {"busy_share": trace["busy_share"], "wall_ms": trace["wall_us"]
+            / 1e3, "busy_ms": trace["busy_us"] / 1e3,
+            "events": sum(v["count"] for v in trace["by_name"].values()),
+            "top_ms": {k: v["us"] / 1e3 for k, v in top}}
+
+
+def model_flops_per_step(cfg, n_params: int, tokens: int) -> float:
+    """6 N T for the weights (the input embedding is a lookup, not a
+    product: N leaves it out) plus 12 L H hd S T for the attention
+    scores and their product with v (every key, as the model computes
+    them)."""
+    n = n_params - cfg.padded_vocab(1) * cfg.d_model
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd \
+        * TRAIN_SEQ * tokens
+
+
+def dp2_leg() -> dict:
+    """2 ``gloo`` ranks, each with its policy state on cuda:0 and the
+    payloads on the host: smoke-width ``TRAIN_ARCH`` at ``MeshAxes(dp=2,
+    fsdp=True, gather_bf16=True)`` with ``size_aware`` on ``tier="cuda"``,
+    gradient sync bucketed and not, 3 steps each (the shared half of
+    ``tests/test_torch_train_mesh.py``), against a 1-rank run of the same
+    global batches on the host."""
+    import multiprocessing as mp
+
+    import torch_train_check as chk
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_map
+
+    cfg = get_smoke_config(TRAIN_ARCH).with_overrides(dtype="float32")
+    params, _ = init_params(5, cfg, serve_axes(), device="cpu")
+    w0 = tree_map(lambda t: t.numpy(), params)
+    jobs = [dict(name=f"dp2_bucketed{int(b)}", kind="train", dp=2, tp=1,
+                 fsdp=True, bf16=True, bucketed=b, clip=1.0, tier="cuda",
+                 policy="size_aware") for b in (False, True)]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=chk.rank_main, args=(r, 2, port, q, jobs, w0))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(q.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    for r, rec in got.items():
+        check("error" not in rec, f"dp2 rank {r}:\n{rec.get('error')}")
+    one = chk.run_job(dict(name="one", kind="train", dp=1, tp=1, fsdp=False,
+                           clip=1.0, tier="torch"), w0)
+    out = {}
+    for job in jobs:
+        n = job["name"]
+        worst, algos = 0.0, set()
+        for r in range(2):
+            rec = got[r][n]
+            for part in ("params", "m", "v"):
+                for path, want in one[part].items():
+                    a = rec[part][path].astype("float64")
+                    w = want.astype("float64")
+                    worst = max(worst, float(((a - w) ** 2).sum() ** 0.5
+                                             / max((w ** 2).sum() ** 0.5,
+                                                   1e-30)))
+            # size_aware reads a map, so the dispatcher keeps no cache
+            # for it (hits 0): every decision is computed, by B1 on cuda
+            hits, _ = rec["cache"]
+            computed = len(rec["decisions"]) - hits
+            check(computed > 0 and rec["launches"] == computed,
+                  f"{n} rank {r}: {rec['launches']} B1 launches for "
+                  f"{computed} decisions not served by the decision cache")
+            check(rec["host_fallbacks"] == 0,
+                  f"{n} rank {r}: {rec['host_fallbacks']} host fallbacks")
+            check(rec["ran"] == rec["named"] and rec["ran"],
+                  f"{n} rank {r}: the collectives ran {rec['ran'][:6]}, "
+                  f"the decisions named {rec['named'][:6]}")
+            algos.update(rec["ran"])
+        check(worst <= DP2_TOL, f"{n}: params/moments {worst:.3g} "
+              "from the 1-rank run (relative, per leaf)")
+        out[n] = {"worst_rel": worst, "launches": got[0][n]["launches"],
+                  "cache": got[0][n]["cache"],
+                  "decisions": len(got[0][n]["decisions"]),
+                  "collectives": len(got[0][n]["ran"]),
+                  "algos": sorted(algos),
+                  "loss": [m["loss"] for m in got[0][n]["metrics"]]}
+    return out
+
+
+def training_main_path(dev, lib, empty_ms: float, smi: str) -> tuple:
+    """Phase 13 on the card: full-width ``TRAIN_ARCH`` trained with the
+    §5.3 loop on ``tier="cuda"`` (launch counts set to 0 just before the
+    run and read just after), held to its interp replay; loss checks,
+    bf16 against f32, a bit-exact resume, a profiled step, the policy
+    kernels timed on the trainer's state; then the ``dp = 2`` leg.  The
+    kernels-line rows and the phase's record."""
+    import torch
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    try:
+        run = train_with_loop(dev, "cuda")
+        cfg = run["cfg"]
+        log_ = run["trainer"].metrics_log
+        losses = [m["loss"] for m in log_]
+        check(len(log_) == TRAIN_STEPS and run["trainer"].step_idx
+              == TRAIN_STEPS, f"{len(log_)} steps logged, step_idx "
+              f"{run['trainer'].step_idx}: steps lost across the reload")
+        check(run["trainer"].rebuilds == 1,
+              f"the trainer rebuilt its step {run['trainer'].rebuilds} "
+              "times for one replace")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        first = run["first"]
+        expect = math.log(cfg.vocab) + first["sigma"] ** 2 / 2
+        check(abs(losses[0] - expect) <= LOSS_WINDOW,
+              f"step 1 loss {losses[0]:.4f}, ln V + sigma^2/2 {expect:.4f}")
+        check(losses[0] == first["bf16"]["loss"],
+              f"step 1 loss {losses[0]} against its evaluation "
+              f"{first['bf16']['loss']}")
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              f"loss did not fall: {losses}")
+        d_loss = abs(first["bf16"]["loss"] - first["f32"]["loss"]) \
+            / first["f32"]["loss"]
+        d_gn = abs(first["bf16"]["grad_norm"] - first["f32"]["grad_norm"]) \
+            / first["f32"]["grad_norm"]
+        check(d_loss <= BF16_LOSS_RTOL and d_gn <= BF16_GNORM_RTOL,
+              f"bf16 against f32: loss {d_loss:.3g}, grad_norm {d_gn:.3g}")
+        replay = replay_training_loop(run["feeds"])
+        check(run["adapt_map"] == replay["adapt_map"],
+              "adapt_map differs from the replay's")
+        check(run["decision"] == replay["decision"],
+              f"decision {run['decision']} against the replay's "
+              f"{replay['decision']}")
+        check(run["launches"] == {"adapt_tuner": 1,
+                                  "adapt_profiler": TRAIN_STEPS},
+              f"policy kernel launches {run['launches']} for "
+              f"{TRAIN_STEPS} steps and 1 decision")
+        for n, st in run["stats"].items():
+            check(st["calls"] == run["launches"][n]
+                  and st["host_fallbacks"] == 0,
+                  f"{n}: bridge stats {st}, launches {run['launches'][n]}")
+        check(run["samples"] == TRAIN_STEPS,
+              f"{run['samples']} profiler samples for {TRAIN_STEPS} steps")
+        rows = []
+        for n in ("adapt_profiler", "adapt_tuner"):
+            b = run["live"][n]
+            t = kernel_timing(lib, b.kernel,
+                              b._io[:b.kernel.n_fields].clone(),
+                              {m: v.clone() for m, v in b._dev.items()})
+            check(t["max_abs_err"] == 0, f"{n}: kernel disagrees on the "
+                  f"training-path state (max abs err {t['max_abs_err']})")
+            rows.append({"name": f"policy_kernel[{n}]@training",
+                         "route": "cuda", "source": KERNEL_SOURCE,
+                         "replaces": REPLACES,
+                         "launches": run["launches"][n],
+                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
+                         "bound_by": "launch", "library_ms": None})
+        steps_s = [m["step_time_s"] for m in log_]
+        resume = resume_check(run, dev)
+        trace = training_trace(resume["trainer"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    del resume["trainer"]
+    torch.cuda.empty_cache()
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    p50 = pct(steps_s, 50)
+    flops = model_flops_per_step(cfg, run["n_params"], tokens)
+    step = {"p50_ms": p50 * 1e3, "p99_ms": pct(steps_s, 99) * 1e3,
+            "tokens_per_s": tokens / p50,
+            "model_flops_share": flops / p50 / PEAK_BF16_FLOPS}
+    t1 = time.time()
+    dp2 = dp2_leg()
+    dp2_s = time.time() - t1
+    d = run["decision"]
+    log(f"[train] {TRAIN_ARCH} at full width ({cfg.n_layers} layers, "
+        f"D {cfg.d_model}, {run['n_params'] / 1e9:.3f} B params, bf16 "
+        f"activations, f32 master, remat) on 1 card, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ} ({tokens} tokens/step), {TRAIN_STEPS} steps: step "
+        f"p50 {step['p50_ms']:.1f} ms p99 {step['p99_ms']:.1f} ms; "
+        f"{step['tokens_per_s']:.0f} tokens/s; model FLOP/s "
+        f"{flops / p50 / 1e12:.1f} T ({100 * step['model_flops_share']:.2f}"
+        f"% of 989 TFLOP/s; 6 N T + attention, {flops / 1e12:.1f} TFLOP "
+        f"per step); peak memory {run['peak'] / 2**30:.2f} GiB; {smi}")
+    log(f"[train loss] " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; step 1 {losses[0]:.4f} against ln V + sigma^2/2 "
+        f"{expect:.4f} (sigma {first['sigma']:.4f}); first three mean "
+        f"{sum(losses[:3]) / 3:.4f}, last three {sum(losses[-3:]) / 3:.4f}"
+        f"; step 1 in bf16 against f32 on the same params and batch: "
+        f"loss {first['bf16']['loss']:.6f} / {first['f32']['loss']:.6f} "
+        f"({d_loss:.3g} rel, limit {BF16_LOSS_RTOL:g}), grad_norm "
+        f"{first['bf16']['grad_norm']:.5f} / {first['f32']['grad_norm']:.5f}"
+        f" ({d_gn:.3g} rel, limit {BF16_GNORM_RTOL:g}); bf16 logits "
+        f"against f32 (one sequence): rms {first['logits_rms_over_rms']:.4f}"
+        f" of the rms")
+    log(f"[train resume] saved at step {RESUME_AT} ({run['save_s']:.1f} s), "
+        f"restored into a fresh Trainer ({resume['load_s']:.1f} s with its "
+        f"init) and run to step {TRAIN_STEPS}: all {resume['leaves']} "
+        f"params / m / v leaves bit-equal to the unbroken run's "
+        f"(deterministic algorithms on)")
+    log(f"[train loop] tier cuda: B1 launches adapt_profiler "
+        f"{run['launches']['adapt_profiler']} (one per step), adapt_tuner "
+        f"{run['launches']['adapt_tuner']} (one decision: algo {d.algo} "
+        f"proto {d.proto} channels {d.channels}); the tuner's link "
+        f"replaced warm after step {RESUME_AT}, the trainer rebuilt its "
+        f"step once, 0 lost steps; host fallbacks 0; {run['samples']} "
+        f"samples; adapt_map bytes and the Decision identical to the "
+        f"interp replay")
+    log(f"[train trace] one step under torch.profiler: {trace['wall_ms']:.1f}"
+        f" ms, the device busy {trace['busy_ms']:.1f} ms of it "
+        f"({100 * trace['busy_share']:.2f}%), {trace['events']} device "
+        f"events; largest ms: " + "; ".join(
+            f"{k[:60]} {v:.1f}" for k, v in trace["top_ms"].items()))
+    log(f"[train dp2] 2 gloo ranks, smoke width, dp=2 FSDP on the bf16 "
+        f"wire, size_aware on tier cuda ({dp2_s:.1f} s): " + "; ".join(
+            f"{n}: params/moments within {v['worst_rel']:.3g} of the "
+            f"1-rank run (limit {DP2_TOL:g}), B1 launches "
+            f"{v['launches']} = {v['decisions']} decisions less "
+            f"{v['cache'][0]} decision-cache hits (size_aware reads a map: "
+            f"no cache), {v['collectives']} collectives each ran its "
+            f"decided algorithm ({', '.join(v['algos'])})"
+            for n, v in dp2.items()))
+    record = {"arch": TRAIN_ARCH, "params": run["n_params"],
+              "losses": losses, "step": step, "flops_per_step": flops,
+              "peak_bytes": run["peak"], "first_step": first,
+              "launches": run["launches"], "decision":
+              dataclasses.asdict(d), "save_s": run["save_s"],
+              "resume": {k: v for k, v in resume.items()
+                         if k != "trainer"},
+              "trace": trace, "dp2": dp2, "seconds": time.time() - t0}
+    return rows, record
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
+    # cuBLAS's fixed workspace: phase 13 trains with deterministic
+    # algorithms on, which torch refuses for cuBLAS without it (read when
+    # the handle is made, so before any card work)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2444,6 +2935,10 @@ def main() -> int:
     serve_rows, serving = serving_main_path(dev, lib, empty_ms, smi)
     table.extend(serve_rows)
 
+    # ---- 13. the training path ---------------------------------------------
+    train_rows, training = training_main_path(dev, lib, empty_ms, smi)
+    table.extend(train_rows)
+
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
@@ -2472,7 +2967,7 @@ def main() -> int:
                              "recorder": {k: v for k, v in obs["cuda"].items()
                                           if k != "stragglers"},
                              "seconds": host_s},
-              "serving": serving,
+              "serving": serving, "training": training,
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,16 +1,84 @@
-"""Meshes and mesh facts (the port of ``repro/launch/mesh.py``'s
-``make_host_mesh`` and ``mesh_topology``).
+"""Meshes and mesh facts (the port of ``repro/launch/mesh.py``).
 
-Works over a ``torch.distributed.device_mesh.DeviceMesh``: reading one
-touches no process group; :func:`make_host_mesh` builds one over the
-default process group.  ``make_production_mesh`` and ``mesh_axes`` need
-the models' ``MeshAxes`` and come with the port of the models.
+Works over a ``torch.distributed.device_mesh.DeviceMesh``:
+:func:`make_production_mesh` and :func:`make_host_mesh` build one over
+the default process group, :func:`mesh_axes` reads the models'
+``MeshAxes`` (with each axis's process group) from one, and
+:func:`mesh_topology` reads the facts the dispatcher feeds into policy
+contexts.  Defined as functions, never module-level constants, so
+importing this module touches no process group.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
+
+
+def _too_few(what: str, n: int, device_type: str) -> None:
+    """Raise ``ValueError`` unless the default process group has ``n``
+    ranks and, for ``device_type="cuda"``, the host ``n`` cards."""
+    import torch
+    import torch.distributed as dist
+
+    ranks = dist.get_world_size() if dist.is_initialized() else 0
+    cards = torch.cuda.device_count() if device_type == "cuda" else None
+    if ranks >= n and (cards is None or cards >= n):
+        return
+    has = (f"{ranks} rank(s) in its default process group"
+           if dist.is_initialized()
+           else "no default process group (torch.distributed is not "
+                "initialized)")
+    if cards is not None:
+        has += f" and {cards} CUDA device(s)"
+    raise ValueError(
+        f"{what} needs {n} rank(s) but this process has {has}; start {n} "
+        f"ranks with torchrun --nproc-per-node={n} (one card each), or, "
+        f"on the host, init_process_group('gloo', world_size={n}) in each "
+        f"of {n} processes and pass device_type='cpu'")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh: ``(16, 16)`` named ``("data",
+    "model")``, or ``(2, 16, 16)`` with a leading ``"pod"`` axis, over
+    ranks ``0 .. 255`` (``511``) of the default process group.  Raises
+    ``ValueError`` naming the rank count when the group is smaller; the
+    mesh is never shrunk (see :func:`make_host_mesh`)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    _too_few(f"make_production_mesh(multi_pod={multi_pod})", n, device_type)
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def mesh_axes(mesh, *, fsdp: bool = True, gather_bf16: bool = False):
+    """The ``MeshAxes`` descriptor of a mesh: axis sizes, and the process
+    group of each axis longer than 1 (``DeviceMesh.get_group``)."""
+    from ..models.layers import MeshAxes
+
+    names = list(mesh.mesh_dim_names or ())
+    sizes = dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+
+    def group(name):
+        return mesh.get_group(name) if sizes.get(name, 1) > 1 else None
+
+    return MeshAxes(
+        data="data", model="model",
+        pod="pod" if "pod" in names else None,
+        fsdp=fsdp, gather_bf16=gather_bf16,
+        tp=sizes.get("model", 1),
+        dp=sizes.get("data", 1),
+        n_pods=sizes.get("pod", 1),
+        model_group=group("model"), data_group=group("data"),
+        pod_group=group("pod"),
+    )
 
 
 def make_host_mesh(n: int = 1, device_type: str = "cuda"):
@@ -24,24 +92,10 @@ def make_host_mesh(n: int = 1, device_type: str = "cuda"):
     bandwidths downstream, far from the cause.
     """
     import torch
-    import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
-    ranks = dist.get_world_size() if dist.is_initialized() else 0
-    cards = torch.cuda.device_count() if device_type == "cuda" else None
-    if ranks < n or (cards is not None and cards < n):
-        has = (f"{ranks} rank(s) in its default process group"
-               if dist.is_initialized()
-               else "no default process group (torch.distributed is not "
-                    "initialized)")
-        if cards is not None:
-            has += f" and {cards} CUDA device(s)"
-        raise ValueError(
-            f"make_host_mesh(n={n}, device_type={device_type!r}) needs {n} "
-            f"rank(s) but this process has {has}; start {n} ranks with "
-            f"torchrun --nproc-per-node={n} (one card each), or, on the "
-            "host, init_process_group('gloo', world_size=n) in each of n "
-            "processes and pass device_type='cpu'")
+    _too_few(f"make_host_mesh(n={n}, device_type={device_type!r})", n,
+             device_type)
     return DeviceMesh(device_type, torch.arange(n).reshape(1, n),
                       mesh_dim_names=("data", "model"))
 

@@ -1,21 +1,30 @@
-"""Sharded layer primitives (explicit Megatron-style tensor parallelism).
+"""Sharded layer primitives (explicit Megatron-style SPMD).
 
 The port of ``repro/models/layers.py``.  Every function takes this rank's
-tensors.  The ``model`` axis carries tensor parallelism over a
-``torch.distributed`` process group (``MeshAxes.model_group``; ``None``
-is the default group), and every collective on it goes through the
-policy dispatcher.  The ``data`` axis (FSDP gathers, ``dp > 1``) comes
-with the training slice: those paths raise ``NotImplementedError``.
+tensors.  The ``model`` axis carries tensor parallelism, the ``data``
+axis batch + FSDP parameter sharding, the optional ``pod`` axis cross-pod
+data parallelism; each runs over a ``torch.distributed`` process group
+(``MeshAxes.model_group``, ``data_group``, ``pod_group``; ``None`` is the
+default group), and every collective on them goes through the policy
+dispatcher.
 
-The ``tp > 1`` collectives are forward-only here: the dispatcher's
-algorithms run over ``torch.distributed`` outside autograd, so a
-``tp > 1`` collective on a tensor that needs a gradient raises instead of
-returning a gradient that skips the reduction.
+Gradients.  Each collective is a ``torch.autograd.Function`` whose
+backward is the reference's transpose, issued through the dispatcher on
+the same axis: an all-reduce's cotangent is all-reduced, an all-gather's
+reduce-scattered, an all-to-all's sent back by another all-to-all.  Under
+that rule the cotangent of an activation replicated over the model axis
+is held in parts, one per rank, summing to the whole.  So the loss,
+replicated over the model axis, is seeded with ``1/tp`` on every rank
+(``train/step.py``), and the gradient of a parameter replicated over the
+model axis is the sum over the axis, which ``sync_grads`` takes.  The
+reference seeds 1 on every rank and so returns ``tp`` times these
+gradients (ROADMAP C8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Optional
 
 import torch
@@ -23,8 +32,6 @@ import torch.distributed as dist
 
 from ..collectives.dispatch import dispatcher
 from ..core.context import AxisKind
-
-_TRAIN_SLICE = "ROADMAP A5.5, the training slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +45,11 @@ class MeshAxes:
     tp: int = 1                # static size of the model axis
     dp: int = 1                # static size of the data axis (per pod)
     n_pods: int = 1
-    # process group of the model axis (None: the default group); the
-    # dispatcher's entry points take it as ``group=``
+    # process groups of the axes (None: the default group); the
+    # dispatcher's entry points take them as ``group=``
     model_group: Any = dataclasses.field(default=None, compare=False)
+    data_group: Any = dataclasses.field(default=None, compare=False)
+    pod_group: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def world(self) -> int:
@@ -52,31 +61,120 @@ def model_rank(ax: MeshAxes) -> int:
     return dist.get_rank(ax.model_group) if ax.tp > 1 else 0
 
 
-def _forward_only(x: torch.Tensor, what: str) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"{what} over tp > 1 is forward-only in the port: gradients "
-            f"through the dispatcher's collectives come with {_TRAIN_SLICE}")
+def data_rank(ax: MeshAxes) -> int:
+    """This rank's index on the data axis."""
+    return dist.get_rank(ax.data_group) if ax.dp > 1 else 0
+
+
+def pod_rank(ax: MeshAxes) -> int:
+    """This rank's index on the pod axis."""
+    return dist.get_rank(ax.pod_group) if ax.n_pods > 1 else 0
 
 
 # ---------------------------------------------------------------------------
-# collectives (policy-dispatched)
+# collectives (policy-dispatched, differentiable)
 # ---------------------------------------------------------------------------
+
+_TRANSPOSE = {"all_reduce": "all_reduce", "all_gather": "reduce_scatter",
+              "reduce_scatter": "all_gather", "all_to_all": "all_to_all"}
+
+
+class _Collective(torch.autograd.Function):
+    """``dispatcher().<op>`` over one axis; backward runs the op's
+    transpose (``_TRANSPOSE``) through the dispatcher on the same axis."""
+
+    @staticmethod
+    def forward(ctx, x, op: str, axis: str, group, kind: int):
+        ctx.args = (op, axis, group, kind)
+        return getattr(dispatcher(), op)(x, axis, group=group,
+                                         axis_kind=kind)
+
+    @staticmethod
+    def backward(ctx, ct):
+        op, axis, group, kind = ctx.args
+        g = getattr(dispatcher(), _TRANSPOSE[op])(
+            ct.contiguous(), axis, group=group, axis_kind=kind)
+        return g, None, None, None, None
+
+
+def _collective(x, op: str, axis: str, group, kind: int):
+    return _Collective.apply(x, op, axis, group, kind)
+
+
+class _PsumTape(threading.local):
+    """The ``save_psum`` remat policy: inside a checkpointed period the
+    forward records each ``tp_psum`` output and the recompute replays
+    them in order, so the recompute issues no model-axis collective
+    (``jax.checkpoint_policies.save_only_these_names("tp_psum")``)."""
+    mode: Optional[str] = None
+    outs: Optional[list] = None
+
+
+_TAPE = _PsumTape()
+
+
+class _Replay(torch.autograd.Function):
+    """A recorded ``tp_psum`` output standing in for the collective in a
+    recompute; its backward is the collective's (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, out, ax):
+        ctx.ax = ax
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        ax = ctx.ax
+        g = dispatcher().all_reduce(ct.contiguous(), ax.model,
+                                    group=ax.model_group,
+                                    axis_kind=AxisKind.MODEL)
+        return g, None, None
+
 
 def tp_psum(x, ax: MeshAxes):
-    """Row-parallel reduction over the model axis."""
+    """Row-parallel reduction over the model axis.  Under the
+    ``save_psum`` remat policy the result is kept for the recompute."""
     if ax.tp == 1:
         return x
-    _forward_only(x, "tp_psum")
-    return dispatcher().all_reduce(x, ax.model, group=ax.model_group,
-                                   axis_kind=AxisKind.MODEL)
+    if _TAPE.mode == "replay":
+        return _Replay.apply(x, _TAPE.outs.pop(0), ax)
+    out = _collective(x, "all_reduce", ax.model, ax.model_group,
+                      AxisKind.MODEL)
+    if _TAPE.mode == "record":
+        _TAPE.outs.append(out.detach())
+    return out
+
+
+class _TapeMode:
+    def __init__(self, mode: str, outs: list):
+        self.mode, self.outs = mode, outs
+
+    def __enter__(self):
+        self.saved = (_TAPE.mode, _TAPE.outs)
+        _TAPE.mode, _TAPE.outs = self.mode, self.outs
+
+    def __exit__(self, *exc):
+        _TAPE.mode, _TAPE.outs = self.saved
+
+
+def save_psum_contexts():
+    """``context_fn`` for ``torch.utils.checkpoint.checkpoint``: a fresh
+    tape, recorded by the forward and replayed by the recompute."""
+    outs: list = []
+    return _TapeMode("record", outs), _TapeMode("replay", outs)
 
 
 def tp_all_gather(x, ax: MeshAxes):
     """Tiled all-gather over the model axis along dim 0."""
-    _forward_only(x, "the model-axis all-gather")
-    return dispatcher().all_gather(x, ax.model, group=ax.model_group,
-                                   axis_kind=AxisKind.MODEL)
+    return _collective(x, "all_gather", ax.model, ax.model_group,
+                       AxisKind.MODEL)
+
+
+def tp_all_to_all(x, ax: MeshAxes):
+    """Tiled all-to-all over the model axis along dim 0 (the MoE
+    dispatch); its own transpose."""
+    return _collective(x, "all_to_all", ax.model, ax.model_group,
+                       AxisKind.EXPERT)
 
 
 def tp_psum_max(x, ax: MeshAxes):
@@ -89,13 +187,50 @@ def tp_psum_max(x, ax: MeshAxes):
     return y
 
 
+class _AgBf16Wire(torch.autograd.Function):
+    """All-gather on a guaranteed 16-bit wire: the f32 shard is rounded
+    to bf16 and gathered over the data axis; the backward reduce-scatters
+    the bf16 cotangent and widens it to f32.  The reference bitcasts the
+    bf16 to u16 for the gather, to keep XLA's float normalisation from
+    widening the wire; torch rewrites nothing, and ``gloo`` has no 16-bit
+    integer collectives, so the port gathers the bf16 tensor itself: the
+    same bytes and the same decision (2-byte elements)."""
+
+    @staticmethod
+    def forward(ctx, w, ax):
+        ctx.ax = ax
+        return dispatcher().all_gather(w.to(torch.bfloat16), ax.data,
+                                       group=ax.data_group,
+                                       axis_kind=AxisKind.DATA)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ax = ctx.ax
+        g = dispatcher().reduce_scatter(ct.to(torch.bfloat16).contiguous(),
+                                        ax.data, group=ax.data_group,
+                                        axis_kind=AxisKind.DATA)
+        return g.float(), None
+
+
 def fsdp_gather(w, ax: MeshAxes, dim: int):
-    """Gather an FSDP-sharded parameter along ``dim`` over the data axis;
-    with ``dp == 1`` (or FSDP off) the parameter is whole already."""
+    """Gather an FSDP-sharded parameter along ``dim`` over the data axis.
+
+    The backward reduce-scatters the gradient back to the shards
+    (ZeRO-3).  With ``ax.gather_bf16`` the gather rides a bf16 wire (half
+    the bytes)."""
     if not ax.fsdp or ax.dp == 1:
         return w
-    raise NotImplementedError(
-        f"FSDP gathers (dp={ax.dp}) come with {_TRAIN_SLICE}")
+    if dim != 0:
+        w = torch.movedim(w, dim, 0)
+    w = w.contiguous()
+    if ax.gather_bf16 and w.dtype == torch.float32:
+        w = _AgBf16Wire.apply(w, ax)
+    else:
+        w = _collective(w, "all_gather", ax.data, ax.data_group,
+                        AxisKind.DATA)
+    if dim != 0:
+        w = torch.movedim(w, 0, dim)
+    return w
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..collectives.dispatch import dispatcher
-from ..core.context import AxisKind
 from .config import ModelConfig
 from .layers import (MeshAxes, col_linear, fsdp_gather, model_rank,
-                     row_linear, tp_all_gather)
+                     row_linear, tp_all_gather, tp_all_to_all)
 
 
 def router_topk(logits, k: int):
@@ -102,8 +100,7 @@ def moe_block(p, x, cfg: ModelConfig, ax: MeshAxes
     if tp > 1:
         e_loc = E // tp
         buf = buf.reshape(tp * e_loc, C, D)
-        buf = dispatcher().all_to_all(buf, ax.model, group=ax.model_group,
-                                      axis_kind=AxisKind.EXPERT)
+        buf = tp_all_to_all(buf.contiguous(), ax)
         # now buf[s, e] = tokens from source rank s for local expert e
         buf = buf.reshape(tp, e_loc, C, D).transpose(0, 1).reshape(
             e_loc, tp * C, D)
@@ -122,9 +119,7 @@ def moe_block(p, x, cfg: ModelConfig, ax: MeshAxes
         e_loc = E // tp
         out = out.reshape(e_loc, tp, C, D).transpose(0, 1).reshape(
             tp * e_loc, C, D)
-        out = dispatcher().all_to_all(out.contiguous(), ax.model,
-                                      group=ax.model_group,
-                                      axis_kind=AxisKind.EXPERT)
+        out = tp_all_to_all(out.contiguous(), ax)
         out = out.reshape(E, C, D)
 
     # --- combine -----------------------------------------------------------------

@@ -3,7 +3,9 @@
 The port of ``repro/models/transformer.py``.  Layer stacks are grouped by
 a *period* of block kinds (e.g. RG-LRU's (rec, rec, attn)); parameters
 are stacked (n_periods, ...) per position-in-period, as in the reference,
-and the stack is a loop over the periods plus the unrolled tail.
+and the stack is a loop over the periods plus the unrolled tail.  With
+``cfg.remat`` each period runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan step).
 
 Parameters are the global logical tensors at ``tp == 1`` (or this rank's
 slices of them, cut by the specs); ``init_params`` also returns the spec
@@ -18,13 +20,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..device import resolve_device
 from . import attention as att
 from . import recurrent as rec
 from .config import ModelConfig
-from .layers import (MeshAxes, apply_norm, vp_embed, vp_logits,
-                     vp_logits_loss)
+from .layers import (MeshAxes, apply_norm, save_psum_contexts, vp_embed,
+                     vp_logits, vp_logits_loss)
 from .mlp import mlp_block
 from .moe import moe_block
 
@@ -36,6 +39,32 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_flatten(tree):
+    """(leaves, rebuild) in ``jax.tree.flatten``'s order: dict keys
+    sorted, lists and tuples in order; ``rebuild(leaves)`` puts a list of
+    the same length back into the tree's structure."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = sorted(t)
+            subs = [walk(t[k]) for k in keys]
+            return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+        if isinstance(t, (list, tuple)):
+            subs = [walk(v) for v in t]
+            kind = type(t)
+            return lambda it: kind(s(it) for s in subs)
+        leaves.append(t)
+        return lambda it: next(it)
+
+    build = walk(tree)
+    return leaves, lambda new: build(iter(new))
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
 
 
 def _layer(tree, i: int):
@@ -366,11 +395,26 @@ def _stack_forward(params, x, cfg: ModelConfig, ax: MeshAxes, *,
     kinds, plen, rem = _period(cfg)
     n_full = cfg.n_layers // plen
     aux = torch.zeros((), device=x.device)
-    for i in range(n_full):
+
+    def period(x, aux, i: int):
         for j in range(plen):
             x, aux = _apply_block(_layer(params["blocks"][j], i), kinds[j],
                                   x, cfg, ax, use_rope=_use_rope(cfg, j),
                                   causal=causal, enc_kv=enc_kv, aux_acc=aux)
+        return x, aux
+
+    # remat: each period's activations are recomputed in the backward;
+    # under "save_psum" the recompute replays the period's tp_psum outputs
+    # instead of issuing the collectives again (layers.save_psum_contexts)
+    remat = cfg.remat and torch.is_grad_enabled()
+    ctx_fn = save_psum_contexts if cfg.remat_policy == "save_psum" \
+        else noop_context_fn
+    for i in range(n_full):
+        if remat:
+            x, aux = checkpoint(period, x, aux, i, use_reentrant=False,
+                                context_fn=ctx_fn, preserve_rng_state=False)
+        else:
+            x, aux = period(x, aux, i)
     for j, p in enumerate(params["tail"]):
         li = n_full * plen + j
         x, aux = _apply_block(_layer(p, 0), kinds[li], x, cfg, ax,

@@ -49,7 +49,11 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.models.moe", "repro_torch.models.recurrent",
            "repro_torch.models.transformer", "repro_torch.models.convert",
            "repro_torch.models.lm", "repro_torch.serve",
-           "repro_torch.serve.engine"]
+           "repro_torch.serve.engine", "repro_torch.data",
+           "repro_torch.data.pipeline", "repro_torch.train",
+           "repro_torch.train.schedule", "repro_torch.train.optimizer",
+           "repro_torch.train.checkpoint", "repro_torch.train.step",
+           "repro_torch.train.trainer", "repro_torch.launch.train"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():
