@@ -146,7 +146,27 @@ Phases (any failure exits non-zero and prints no result line):
    on the host), gradient sync bucketed and not: params and moments
    within 2e-2 of a 1-rank run after 3 steps, B1 launches equal to the
    decisions the decision cache did not serve, every collective running
-   the algorithm its decision named.  Nothing in the phase is caught.
+   the algorithm its decision named.  Nothing in the phase is caught;
+14. the launch plane — (a) ``launch.dryrun.lower_combo`` for
+   tinyllama-1.1b ``train_4k`` and qwen3-1.7b ``prefill_32k`` and
+   ``decode_32k`` on the (16, 16) and (2, 16, 16) meshes, one child
+   process per mesh holding a fake process group of its 256 or 512
+   ranks, one rank's step traced on meta tensors with ``ring_mid_v2``
+   deciding on ``tier="cuda"``: every combo ``ok``, B1's launches equal
+   to the decisions the decision cache did not serve, each result line
+   printed; (b) the dry run of phase 13's own step (full-width
+   tinyllama-1.1b, B 8 x S 2048, remat, one rank) against phase 13's
+   measurements: FLOPs within 0.5% of ``FlopCounterMode``'s count on
+   phase 13's profiled step, the predicted working set within 15% of
+   ``max_memory_allocated``, ``t_compute`` at or below the step p50;
+   (c) ``make_serve_step`` serving qwen3-1.7b at full width in bf16,
+   prefill at B 1 x S 2048 then 16 decode steps, logits, tokens and
+   caches bit-equal to ``prefill`` / ``decode_step`` called directly,
+   ms per prefill and per decode step; (d) ``quickstart_torch`` and
+   ``policy_authoring_torch`` on the card (B1, and B2 for the in-graph
+   tier) deciding as with ``--cpu``, every kernel they ran launched.
+   B1 timed on a decision of the dry runs' traffic (``@dryrun`` row).
+   Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -2322,13 +2342,24 @@ def resume_check(run: dict, dev) -> dict:
 
 def training_trace(tr) -> dict:
     """A ``torch.profiler`` trace of one more training step: the device's
-    busy share and the eight largest device ops."""
-    trace = device_trace(lambda: tr.run(steps=1), 1)
+    busy share and the eight largest device ops; the same step's FLOPs
+    counted by ``FlopCounterMode`` (phase 14 holds the dry run's
+    prediction to them; the counter's host cost lands in the trace's
+    wall time)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+
+    def step():
+        with counter:
+            tr.run(steps=1)
+    trace = device_trace(step, 1)
     top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["us"])[:8]
     return {"busy_share": trace["busy_share"], "wall_ms": trace["wall_us"]
             / 1e3, "busy_ms": trace["busy_us"] / 1e3,
             "events": sum(v["count"] for v in trace["by_name"].values()),
-            "top_ms": {k: v["us"] / 1e3 for k, v in top}}
+            "top_ms": {k: v["us"] / 1e3 for k, v in top},
+            "flops_counted": counter.get_total_flops()}
 
 
 def model_flops_per_step(cfg, n_params: int, tokens: int) -> float:
@@ -2565,6 +2596,291 @@ def training_main_path(dev, lib, empty_ms: float, smi: str) -> tuple:
                          if k != "trainer"},
               "trace": trace, "dp2": dp2, "seconds": time.time() - t0}
     return rows, record
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the launch plane
+# ---------------------------------------------------------------------------
+
+# the dry run on the production meshes: (arch, shape), each on pod and 2pod
+LAUNCH_COMBOS = (("tinyllama-1.1b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                 ("qwen3-1.7b", "decode_32k"))
+LAUNCH_POLICY = "ring_mid_v2"
+LAUNCH_MESHES = (("pod", 256), ("2pod", 512))
+# the dry run of phase 13's step against phase 13's measurements: the
+# matmul FLOPs are the same ATen ops on meta and on the card (0.5% leaves
+# room for nothing but rounding); the working set misses what a CUDA
+# kernel allocates inside itself, which no dispatch mode sees
+# (``_softmax_backward_data`` takes a 4 GiB temp at this config)
+PRED_FLOPS_RTOL = 0.005
+PRED_MEM_RTOL = 0.15
+# make_serve_step at full width: qwen3-1.7b, prefill B 1 x S 2048, then
+# 16 decode steps, against prefill / decode_step called directly
+SERVE_STEP_DECODES = 16
+
+
+def launch_dry_runs() -> dict:
+    """(a) ``lower_combo`` for every ``LAUNCH_COMBOS`` entry on each mesh,
+    one child process per mesh holding a fake group of its 256 or 512
+    ranks, with ``LAUNCH_POLICY`` deciding on ``tier="cuda"`` (B1, its
+    launch count set to 0 in the child just before the step and read just
+    after)."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for mesh, world in LAUNCH_MESHES:
+        jobs = [dict(arch=a, shape_name=s, multi_pod=mesh == "2pod",
+                     policy=LAUNCH_POLICY, tier="cuda")
+                for a, s in LAUNCH_COMBOS]
+        for r in dryrun.run_mesh(world, jobs, timeout=600):
+            key = f"{r['arch']}|{r['shape']}|{mesh}"
+            check(r["status"] == "ok",
+                  f"dry run {key}: {r.get('traceback', r)}")
+            d = r["decisions"]
+            computed = d["made"] - d["cache_hits"]
+            check(r["n_devices"] == world and computed > 0
+                  and d["policy_launches"] == computed,
+                  f"dry run {key}: {d['policy_launches']} B1 launches for "
+                  f"{computed} decisions not served by the decision cache "
+                  f"({d})")
+            out[key] = r
+    return out
+
+
+def launch_predictions(training: dict) -> dict:
+    """(b) The dry run of phase 13's own step (its config, B x S, remat,
+    one rank) against what phase 13 measured on the card: FLOPs against
+    ``FlopCounterMode`` on the profiled step, the working set against
+    ``max_memory_allocated``, ``t_compute`` against the step p50."""
+    from repro_torch.launch import dryrun
+
+    cfg, _ = train_configs()
+    (r,) = dryrun.run_mesh(1, [dict(
+        arch=TRAIN_ARCH, shape_name="train_4k", multi_pod=False,
+        mesh_shape=(1, 1), cfg=cfg, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, tier="cuda")], timeout=600)
+    check(r["status"] == "ok", f"dry run of phase 13's step: "
+          f"{r.get('traceback', r)}")
+    flops = training["trace"]["flops_counted"]
+    work = sum(r["memory_analysis"].values())
+    peak = training["peak_bytes"]
+    p50_s = training["step"]["p50_ms"] / 1e3
+    out = {"flops": {"predicted": r["trace_flops_per_dev"],
+                     "counted": flops,
+                     "rel": r["trace_flops_per_dev"] / flops - 1},
+           "working_set": {"predicted": work, "measured": peak,
+                           "rel": work / peak - 1,
+                           **r["memory_analysis"]},
+           "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+           "step_p50_s": p50_s, "dominant": r["dominant"],
+           "lower_s": r["lower_s"]}
+    check(abs(out["flops"]["rel"]) <= PRED_FLOPS_RTOL,
+          f"dry-run FLOPs {r['trace_flops_per_dev']:.6g} against "
+          f"{flops:.6g} counted on the card")
+    check(abs(out["working_set"]["rel"]) <= PRED_MEM_RTOL,
+          f"dry-run working set {work / 2**30:.2f} GiB against the "
+          f"card's peak {peak / 2**30:.2f} GiB")
+    check(r["t_compute_s"] <= p50_s, f"t_compute {r['t_compute_s']:.4f} s "
+          f"above the measured step p50 {p50_s:.4f} s")
+    return out
+
+
+def serve_step_at_width(dev) -> dict:
+    """(c) ``make_serve_step`` serving ``SERVE_ARCH`` at full width in
+    bf16 (weights cast once, as the engine casts them): prefill at B 1 x
+    S ``PREFILL_TOKENS``, then ``SERVE_STEP_DECODES`` greedy decode steps,
+    each bit-equal to ``prefill`` / ``decode_step`` called directly on the
+    same inputs; ms per prefill and per decode step (CUDA events)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.convert import compute_params
+    from repro_torch.models.transformer import init_caches, tree_leaves
+    from repro_torch.train.step import make_serve_step
+
+    cfg = get_config(SERVE_ARCH)
+    ax = serve_axes()
+    params32, specs = init_params(12, cfg, ax, device=dev)
+    params = compute_params(params32, cfg)
+    del params32
+    torch.cuda.empty_cache()
+    ctx = PREFILL_TOKENS + SERVE_STEP_DECODES
+    g = torch.Generator().manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_TOKENS),
+                           generator=g).to(dev)
+    pre = make_serve_step(cfg, ax, None, specs, None, mode="prefill")
+    dec = make_serve_step(cfg, ax, None, specs, None, mode="decode")
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    pre(params, {"tokens": tokens})                          # warm-up
+    logits, prefill_ms_ = timed(lambda: pre(params, {"tokens": tokens}))
+    with torch.no_grad():
+        direct = prefill(params, {"tokens": tokens}, cfg, ax)
+    check(tuple(logits.shape) == (1, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"make_serve_step prefill gave {tuple(logits.shape)}")
+    check(torch.equal(logits, direct), "make_serve_step's prefill logits "
+          "differ from prefill's")
+    caches = init_caches(params, cfg, 1, ctx, ax)
+    mine = init_caches(params, cfg, 1, ctx, ax)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    ref_tok, decode_ms, toks = tok.clone(), [], []
+    for i in range(SERVE_STEP_DECODES):
+        pos = torch.full((1,), PREFILL_TOKENS + i, dtype=torch.int32,
+                         device=dev)
+        (tok, mine), ms = timed(lambda: dec(params, tok, mine, pos))
+        decode_ms.append(ms)
+        with torch.no_grad():
+            ref_tok, caches = decode_step(params, ref_tok, caches, pos, cfg,
+                                          ax)
+        check(torch.equal(tok, ref_tok), f"decode step {i}: token "
+              f"{tok.tolist()} against decode_step's {ref_tok.tolist()}")
+        toks.append(int(tok))
+    differ = sum(not torch.equal(a, b) for a, b in
+                 zip(tree_leaves(mine), tree_leaves(caches)))
+    check(differ == 0, f"{differ} cache leaves differ from decode_step's")
+    out = {"prefill_ms": prefill_ms_, "decode_p50_ms": pct(decode_ms, 50),
+           "decode_ms": decode_ms, "tokens": toks,
+           "cache_leaves": len(tree_leaves(mine))}
+    del params, caches, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_on_the_card() -> dict:
+    """(d) ``quickstart_torch`` and ``policy_authoring_torch`` on the card
+    (B1, and B2 for the in-graph tier) and with ``--cpu``: the same
+    decision lines; every kernel the card runs launched."""
+    import contextlib
+    import io
+    import re
+
+    import policy_authoring_torch
+    import quickstart_torch
+
+    out = {}
+    for name, mod in (("quickstart", quickstart_torch),
+                      ("policy_authoring", policy_authoring_torch)):
+        runs = {}
+        for flag in ([], ["--cpu"]):
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[bool(flag)] = mod.main(flag)
+        card, cpu = runs[False], runs[True]
+        same = [re.sub(r"in-graph \([^)]*\)", "in-graph", ln)
+                for ln in card["lines"]] == \
+            [re.sub(r"in-graph \([^)]*\)", "in-graph", ln)
+             for ln in cpu["lines"]]
+        check(same, f"{name}: the card's decisions {card['lines']} against "
+              f"the CPU's {cpu['lines']}")
+        launches = {k.name: k.launches + k.launches32
+                    for k in card["kernels"]}
+        check(launches and all(v > 0 for v in launches.values())
+              and not cpu["kernels"],
+              f"{name}: kernel launches {launches} on the card, "
+              f"{len(cpu['kernels'])} kernels with --cpu")
+        out[name] = {"lines": card["lines"], "launches": launches}
+    return out
+
+
+def launch_main_path(dev, lib, empty_ms: float, training: dict,
+                     smi: str) -> tuple:
+    """Phase 14 on the card: (a) the dry runs on the production meshes,
+    (b) phase 13's step predicted and held to its measurements, (c)
+    ``make_serve_step`` at full width, (d) the examples.  The kernels-line
+    row of the dry runs' B1 and the phase's record."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import policy_authoring_torch
+    import quickstart_torch
+    import repro_torch.policies as pol
+    from repro_torch.core import PolicyRuntime, cudac, make_ctx
+    from repro_torch.core.context import AxisKind, CollType
+
+    t0 = time.time()
+    # the examples' own policies build while the dry runs trace
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        built = pool.submit(cudac.build_all, [
+            cudac.PolicyKernel(quickstart_torch.my_tuner.program),
+            cudac.PolicyKernel(policy_authoring_torch.bucketizer.program)])
+        dry = launch_dry_runs()
+        built.result()
+    dry_s = time.time() - t0
+    for key, r in dry.items():
+        log("[dryrun] " + json.dumps({k: v for k, v in r.items()
+                                      if k != "collectives_by_op"}))
+    launches = sum(r["decisions"]["policy_launches"] for r in dry.values())
+    t1 = time.time()
+    pred = launch_predictions(training)
+    pred_s = time.time() - t1
+    f, w = pred["flops"], pred["working_set"]
+    log(f"[dryrun vs card] phase 13's step ({TRAIN_ARCH}, B {TRAIN_BATCH} x "
+        f"S {TRAIN_SEQ}, remat, one rank) traced on meta tensors in "
+        f"{pred['lower_s']} s: FLOPs {f['predicted']:.6e} predicted, "
+        f"{f['counted']:.6e} counted on the card ({100 * f['rel']:+.4f}%, "
+        f"limit {100 * PRED_FLOPS_RTOL:g}%); working set "
+        f"{w['predicted'] / 2**30:.2f} GiB (arguments "
+        f"{w['argument_size_in_bytes'] / 2**30:.2f}, temps "
+        f"{w['temp_size_in_bytes'] / 2**30:.2f}) against "
+        f"max_memory_allocated {w['measured'] / 2**30:.2f} GiB "
+        f"({100 * w['rel']:+.2f}%, limit {100 * PRED_MEM_RTOL:g}%); "
+        f"t_compute {pred['t_compute_s'] * 1e3:.1f} ms and t_memory "
+        f"{pred['t_memory_s'] * 1e3:.1f} ms (H100 SXM datasheet: 989 "
+        f"TFLOP/s, 3.35 TB/s) against the step p50 "
+        f"{pred['step_p50_s'] * 1e3:.1f} ms; {smi}")
+    t1 = time.time()
+    serve = serve_step_at_width(dev)
+    serve_s = time.time() - t1
+    log(f"[serve step] make_serve_step, {SERVE_ARCH} at full width in bf16: "
+        f"prefill B 1 x S {PREFILL_TOKENS} {serve['prefill_ms']:.2f} ms, "
+        f"{SERVE_STEP_DECODES} decode steps p50 {serve['decode_p50_ms']:.2f}"
+        f" ms; logits, tokens and all {serve['cache_leaves']} cache leaves "
+        f"bit-equal to prefill / decode_step called directly; {smi}")
+    t1 = time.time()
+    ex = examples_on_the_card()
+    ex_s = time.time() - t1
+    log(f"[examples] quickstart_torch and policy_authoring_torch on the card "
+        f"decide as with --cpu: " + "; ".join(
+            f"{n}: {len(v['lines'])} decision lines, launches {v['launches']}"
+            for n, v in ex.items()))
+    # the dry runs' policy kernel, timed on a decision of their traffic
+    rt = PolicyRuntime(tier="cuda")
+    rt.load(getattr(pol, LAUNCH_POLICY).program)
+    ctx = make_ctx("tuner", coll_type=CollType.ALL_REDUCE,
+                   msg_size=8 << 20, n_ranks=16, comm_id=1,
+                   axis_kind=AxisKind.MODEL, dtype_bytes=2, max_channels=32)
+    rt.invoke("tuner", ctx)
+    b = rt.chain("tuner")[0].fn
+    t = kernel_timing(lib, b.kernel, b._io[:b.kernel.n_fields].clone(),
+                      {m: v.clone() for m, v in b._dev.items()})
+    check(t["max_abs_err"] == 0, f"{LAUNCH_POLICY}: kernel disagrees "
+          f"(max abs err {t['max_abs_err']})")
+    row = {"name": f"policy_kernel[{LAUNCH_POLICY}]@dryrun", "route": "cuda",
+           "source": KERNEL_SOURCE, "replaces": REPLACES,
+           "launches": launches, "max_abs_err": t["max_abs_err"],
+           "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
+           "bound_by": "launch", "library_ms": None}
+    seconds = time.time() - t0
+    log(f"[launch] phase 14 in {seconds:.1f} s (dry runs {dry_s:.1f}, "
+        f"prediction {pred_s:.1f}, serve step {serve_s:.1f}, examples "
+        f"{ex_s:.1f}); B1 ({LAUNCH_POLICY}) {launches} launches in the "
+        f"dry runs' children, {t['ms']:.6f} ms per launch; {smi}")
+    torch.cuda.empty_cache()
+    record = {"dry": dry, "predictions": pred, "serve_step": serve,
+              "examples": ex, "seconds": seconds,
+              "seconds_by_part": {"dry": dry_s, "prediction": pred_s,
+                                  "serve_step": serve_s, "examples": ex_s}}
+    return [row], record
 
 
 # ---------------------------------------------------------------------------
@@ -2939,6 +3255,11 @@ def main() -> int:
     train_rows, training = training_main_path(dev, lib, empty_ms, smi)
     table.extend(train_rows)
 
+    # ---- 14. the launch plane ----------------------------------------------
+    launch_rows, launch = launch_main_path(dev, lib, empty_ms, training,
+                                           smi)
+    table.extend(launch_rows)
+
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
@@ -2967,7 +3288,7 @@ def main() -> int:
                              "recorder": {k: v for k, v in obs["cuda"].items()
                                           if k != "stragglers"},
                              "seconds": host_s},
-              "serving": serving, "training": training,
+              "serving": serving, "training": training, "launch": launch,
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -46,21 +46,27 @@ def tree_flatten(tree):
     sorted, lists and tuples in order; ``rebuild(leaves)`` puts a list of
     the same length back into the tree's structure."""
     leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            subs = [walk(t[k]) for k in keys]
-            return lambda it: {k: s(it) for k, s in zip(keys, subs)}
-        if isinstance(t, (list, tuple)):
-            subs = [walk(v) for v in t]
-            kind = type(t)
-            return lambda it: kind(s(it) for s in subs)
-        leaves.append(t)
-        return lambda it: next(it)
-
-    build = walk(tree)
+    build = _walk(tree, leaves)
     return leaves, lambda new: build(iter(new))
+
+
+def _walk(t, leaves: list):
+    """Appends ``t``'s leaves to ``leaves``; returns the function that
+    rebuilds ``t``'s structure from an iterator of leaves.  A module
+    function, not a closure over ``leaves``: a recursive closure is a
+    reference cycle, which would keep every leaf alive until Python's
+    cyclic collector runs (the train step's gradients and AdamW's new
+    trees, 20 GiB at tinyllama-1.1b's full width)."""
+    if isinstance(t, dict):
+        keys = sorted(t)
+        subs = [_walk(t[k], leaves) for k in keys]
+        return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+    if isinstance(t, (list, tuple)):
+        subs = [_walk(v, leaves) for v in t]
+        kind = type(t)
+        return lambda it: kind(s(it) for s in subs)
+    leaves.append(t)
+    return next
 
 
 def tree_leaves(tree) -> list:

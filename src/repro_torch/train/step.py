@@ -324,3 +324,64 @@ def make_train_step(cfg: ModelConfig, ax: MeshAxes, mesh, param_specs,
         return params, opt_state, metrics
 
     return local_step, opt_specs
+
+
+def make_serve_step(cfg: ModelConfig, ax: MeshAxes, mesh, param_specs,
+                    cache_specs, *, mode: str,
+                    replicate_batch: bool = False) -> Callable:
+    """mode: 'prefill' (full forward, last-pos logits) or 'decode'
+    (one token against the cache).  ``replicate_batch`` serves batch
+    sizes smaller than the data axis (long_500k: B=1 replicated).
+
+    As in :func:`make_train_step`, the step runs this rank's local
+    function: ``params`` and ``caches`` are this rank's shards
+    (:func:`shard_tree` of the global trees by ``param_specs`` and
+    ``cache_specs``), the batch, ``token`` and ``pos`` are global and cut
+    here to this rank's rows, and the outputs are this rank's rows
+    (:func:`gather_tree` puts a mesh's back together).
+
+    prefill(params, batch) -> logits (B_local, 1, V)
+    decode(params, token, caches, pos) -> (next_token (B_local, 1), caches)
+
+    The decode step updates ``caches`` in place where the reference
+    donates them (``donate_argnums=(2,)``): each cache tensor the caller
+    passed takes the new state's storage (``Tensor.set_``), so no copy is
+    made and the old storage is freed.  ``mesh`` is kept for the
+    reference's signature; the axes' groups come from ``ax``.
+    """
+    from ..models import decode_step, prefill
+
+    dp_axes = None if replicate_batch else (
+        (ax.pod, ax.data) if ax.pod else ax.data)
+
+    def rows(t, spec, device):
+        return _cut(torch.as_tensor(t).to(device), spec, ax)
+
+    if mode == "prefill":
+        bspecs = batch_specs(cfg, ax, replicate_batch=replicate_batch)
+        bspecs.pop("labels", None)     # prefill consumes tokens only
+
+        def local_prefill(params, batch):
+            dev = tree_leaves(params)[0].device
+            b = {k: rows(v, bspecs[k], dev) for k, v in batch.items()
+                 if k in bspecs}
+            with torch.no_grad():
+                return prefill(params, b, cfg, ax)
+
+        return local_prefill
+    if mode != "decode":
+        raise ValueError(f"mode must be 'prefill' or 'decode', not {mode!r}")
+
+    tok_spec = (dp_axes, None)
+
+    def local_decode(params, token, caches, pos):
+        dev = tree_leaves(params)[0].device
+        with torch.no_grad():
+            nxt, new = decode_step(params, rows(token, tok_spec, dev), caches,
+                                   rows(pos, (dp_axes,), dev), cfg, ax)
+            for old, cur in zip(tree_leaves(caches), tree_leaves(new)):
+                if cur is not old:
+                    old.set_(cur)
+        return nxt, caches
+
+    return local_decode

@@ -53,18 +53,24 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.data.pipeline", "repro_torch.train",
            "repro_torch.train.schedule", "repro_torch.train.optimizer",
            "repro_torch.train.checkpoint", "repro_torch.train.step",
-           "repro_torch.train.trainer", "repro_torch.launch.train"]
+           "repro_torch.train.trainer", "repro_torch.launch.train",
+           "repro_torch.launch.specs", "repro_torch.launch.roofline",
+           "repro_torch.launch.dryrun"]
+EXAMPLES = PKG.parents[1] / "examples"
+# the port's examples: imported (each runs only under __main__) and scanned
+EXAMPLE_MODULES = ["quickstart_torch", "policy_authoring_torch",
+                   "serve_adaptive_torch", "train_lm_torch"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_module():
     code = ("import importlib, json, sys\n"
-            f"for m in {MODULES!r}:\n"
+            f"for m in {MODULES + EXAMPLE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))))\n")
     env = dict(os.environ)
-    env["PYTHONPATH"] = str(PKG.parent)
+    env["PYTHONPATH"] = os.pathsep.join([str(PKG.parent), str(EXAMPLES)])
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -83,11 +89,14 @@ def _imports(path: Path):
 
 def test_no_source_file_names_jax_or_the_reference():
     bad = []
-    for path in sorted(PKG.rglob("*.py")):
+    paths = sorted(PKG.rglob("*.py")) + [EXAMPLES / f"{m}.py"
+                                         for m in EXAMPLE_MODULES] \
+        + [PKG.parents[1] / "chip_smoke.py"]
+    for path in paths:
         for mod in _imports(path):
             top = mod.split(".")[0]
             if top in ("jax", "jaxlib", "repro"):
-                bad.append(f"{path.relative_to(PKG)}: {mod}")
+                bad.append(f"{path.name}: {mod}")
     assert not bad, bad
 
 
