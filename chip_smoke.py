@@ -166,7 +166,37 @@ Phases (any failure exits non-zero and prints no result line):
    ``policy_authoring_torch`` on the card (B1, and B2 for the in-graph
    tier) deciding as with ``--cpu``, every kernel they ran launched.
    B1 timed on a decision of the dry runs' traffic (``@dryrun`` row).
-   Nothing in the phase is caught.
+   Nothing in the phase is caught;
+15. the sync-free in-graph step — (a) every shipped policy through
+   ``torchc.compile_predicated`` on the card on phase 3's seeded maps and
+   ctx samples, eagerly under ``set_sync_debug_mode("error")`` and as
+   replays of one ``torch.cuda.CUDAGraph`` capture (each sample copied
+   into the static inputs), bit-exact against B1 and the interpreter,
+   with no host read (a ``TorchDispatchMode`` counts
+   ``aten._local_scalar_dense``); per policy its ATen ops, eager host ms,
+   device us per replay and B1's device us; (b) ``adaptive_ingraph``'s
+   ``sel.all_reduce`` on ``tier="cuda"``, ``"cuda32"`` and ``"torchc"``
+   over a 1-rank NCCL group and a 16 MiB f32 ``x`` on the card: the
+   stream of ``tests/test_ingraph_dispatch.py`` then 1,000 seeded
+   log-uniform latencies (1e3-1e7 ns), first eagerly, then as replays of
+   one captured step (decision, the port's switch node over the four
+   branches, ``y``'s error as a device running max, the algo logged at
+   the write cursor, the state copied into the static state), each
+   latency written by a device fill, every replay under sync-debug
+   ``"error"``: algos equal to the eager run's and across the tiers, the
+   reference stream 0 -> 2 -> 0, the final state bytes equal, the
+   decision count 1,018, ``y == x``, ``host_syncs`` unchanged by the
+   replays; each branch body run as often as its algo was decided, by a
+   device counter each body bumps (on one rank ``y == x`` whichever body
+   runs: NCCL launches nothing for an in-place 1-rank sum); in a
+   ``torch.profiler`` window of replays the policy kernel and the switch
+   once per replay; a capture over a gloo group refused.  (c) host us per replay (p50,
+   p99; outside sync-debug, before any profiler), device us per replay,
+   the window's busy share, beside phase 8's eager step parts and the
+   same step captured without the all-reduce;
+   ``@captured`` rows for B1 and B2 (the kernel's duration in a replay
+   beside an empty kernel's in a graph).  Nothing in the phase is
+   caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -559,15 +589,18 @@ def device_trace(run, n: int = N_TRACE) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter_ns() - t0) / 1e3
     by_name: dict = {}
+    memcpy_us = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t = by_name.setdefault(e.name, [0, 0.0])
             t[0] += 1
             t[1] += e.time_range.elapsed_us()
+            if "memcpy" in e.name.lower():
+                memcpy_us.append(e.time_range.elapsed_us())
     check(bool(by_name), "torch.profiler recorded no device events")
     busy_us = sum(t for _, t in by_name.values())
     return {"decisions": n, "wall_us": wall_us, "busy_us": busy_us,
-            "busy_share": busy_us / wall_us,
+            "busy_share": busy_us / wall_us, "memcpy_us": memcpy_us,
             "by_name": {k: {"count": c, "us": t, "us_each": t / c}
                         for k, (c, t) in by_name.items()}}
 
@@ -2884,6 +2917,556 @@ def launch_main_path(dev, lib, empty_ms: float, training: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the sync-free in-graph step
+# ---------------------------------------------------------------------------
+
+# the stream of tests/test_ingraph_dispatch.py (fast, slow, recovered)
+REF_STREAM = [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8
+N_LOG_UNIFORM = 1_000       # seeded log-uniform latencies, 1e3-1e7 ns
+X_BYTES = 16 << 20          # the captured step's all-reduce payload
+
+
+def op_probe():
+    """A ``TorchDispatchMode`` counting ATen ops (``.ops``) and host
+    reads (``.reads``: ``aten._local_scalar_dense``, which ``.item()``
+    and ``bool()`` reach) in its ``with`` block."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Probe(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+            self.reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            if func is torch.ops.aten._local_scalar_dense.default:
+                self.reads += 1
+            return func(*args, **(kwargs or {}))
+    return Probe()
+
+
+class sync_errors:
+    """``torch.cuda.set_sync_debug_mode("error")`` for a ``with`` block:
+    any synchronising call inside it raises."""
+
+    def __enter__(self):
+        import torch
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _snap(ret, ctx, maps) -> tuple:
+    return ret.reshape(-1).clone(), ctx.clone(), \
+        {n: t.clone() for n, t in maps.items()}
+
+
+def _snap_err(a: tuple, b: tuple) -> int:
+    """Largest u64 disagreement between two snapshots (0 iff equal)."""
+    worst = max(max_abs_diff(a[0].cpu().numpy(), b[0].cpu().numpy()),
+                max_abs_diff(a[1].cpu().numpy(), b[1].cpu().numpy()))
+    for n in a[2]:
+        worst = max(worst, max_abs_diff(a[2][n].cpu().numpy(),
+                                        b[2][n].cpu().numpy()))
+    return worst
+
+
+def predicated_on_card(kernels, dev, lib) -> dict:
+    """(a) For every shipped policy, on phase 3's seeded maps and ctx
+    samples: ``torchc.compile_predicated`` run eagerly on the card under
+    sync-debug ``"error"``, then captured once in a CUDA graph and
+    replayed on every sample copied into its static inputs (the maps
+    carried from sample to sample on every side), each held bit for bit
+    to B1 and the interpreter.  Per policy: ATen ops per decision, eager
+    host ms (ending in a synchronise), device us per replay and B1's
+    device us on the same inputs."""
+    import numpy as np
+    import torch
+
+    import torch_samples as samples
+    from repro_torch.core import torchc
+    from repro_torch.core.vm import VM
+
+    out = {}
+    for i, k in enumerate(kernels):
+        prog = k.prog
+        torchc.check_supported(prog)
+        fn, names = torchc.compile_predicated(prog, k.vinfo)
+        seed = 100 + i                              # phase 3's seeds
+        host = samples.make_maps(prog, np.random.default_rng(seed))
+        vm = VM(prog.insns, host, subprogs=prog.subprogs)
+        start = {n: torchc.map_to_array(m, dev) for n, m in host.items()}
+        rng = np.random.default_rng(seed + 1)
+        bufs = [samples.make_ctx(prog, rng) for _ in range(N_SAMPLES)]
+        ctxs = [torchc.ctx_to_vec(b, dev) for b in bufs]
+        k_maps = {n: t.clone() for n, t in start.items()}
+        p_maps = {n: t.clone() for n, t in start.items()}
+        kern, eager = [], []
+        torch.cuda.synchronize()
+        with sync_errors():
+            for c in ctxs:
+                kc = c.clone()
+                kr = torch.zeros(1, dtype=torch.int64, device=dev)
+                k.launch(kc, kr, k_maps)
+                kern.append(_snap(kr, kc, k_maps))
+                r, pc, p_maps = fn(c, p_maps)
+                eager.append(_snap(r, pc, p_maps))
+        s_ctx = ctxs[0].clone()
+        s_maps = {n: t.clone() for n, t in start.items()}
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            g_ret, g_ctx, g_maps = fn(s_ctx, s_maps)
+        captured = []
+        with sync_errors():
+            for c in ctxs:
+                s_ctx.copy_(c)
+                g.replay()
+                captured.append(_snap(g_ret, g_ctx, g_maps))
+                for n in names:
+                    s_maps[n].copy_(g_maps[n])
+        torch.cuda.synchronize()
+        worst = 0
+        for j, buf in enumerate(bufs):
+            v_buf = bytearray(buf)
+            v_ret = vm.run(v_buf) & M64
+            v = (torch.tensor([torchc._s64(v_ret)]),
+                 torch.from_numpy(np.frombuffer(bytes(v_buf), "<i8").copy()),
+                 {n: torch.from_numpy(m.to_device().view("<i8").copy())
+                  for n, m in host.items()})
+            worst = max(worst, _snap_err(kern[j], v), _snap_err(eager[j], v),
+                        _snap_err(captured[j], v))
+        check(worst == 0, f"{prog.name}: the predicated lowering disagrees "
+              f"with B1 or the interpreter (max abs err {worst})")
+        probe = op_probe()
+        with probe:
+            fn(ctxs[0], start)
+        check(probe.reads == 0, f"{prog.name}: {probe.reads} host reads in "
+              "the predicated lowering")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter_ns()
+            fn(ctxs[0], start)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter_ns() - t0)
+        replay_ms = device_ms(lib, g.replay, reps=10 if probe.ops > 4000
+                              else 50, warmup=2)
+        kc, kr = ctxs[0].clone(), torch.zeros(1, dtype=torch.int64,
+                                               device=dev)
+        km = {n: t.clone() for n, t in start.items()}
+        b1_ms = device_ms(lib, lambda: k.launch(kc, kr, km), reps=100)
+        out[prog.name] = {"max_abs_err": worst, "samples": N_SAMPLES,
+                          "aten_ops": probe.ops,
+                          "eager_host_ms": pct(times, 50) / 1e6,
+                          "replay_device_us": replay_ms * 1e3,
+                          "b1_device_us": b1_ms * 1e3}
+        del g
+    return out
+
+
+def adaptive_ingraph_program():
+    """``adaptive_ingraph`` of ``tests/test_ingraph_dispatch.py``, built
+    with the port's frontend: EMA the latency in ``lat_map``; tree (2)
+    when slow, default (0) when fast; ``lat_map[0][1]`` counts the
+    decisions."""
+    import repro_torch.core as core
+
+    lat_map = core.map_decl("lat_map", kind="array", value_size=16,
+                            max_entries=4)
+
+    @core.policy(section="tuner", maps=[lat_map])
+    def adaptive_ingraph(ctx):
+        st = lat_map.lookup(0)
+        if st is None:
+            ctx.algorithm = 0
+            return 0
+        if st[0] == 0:
+            st[0] = ctx.dtype_bytes
+        else:
+            st[0] = (st[0] * 3 + ctx.dtype_bytes) // 4
+        st[1] = st[1] + 1
+        if st[0] > 1000000:
+            ctx.algorithm = 2          # tree: latency-optimized
+            ctx.n_channels = 2
+        else:
+            ctx.algorithm = 0          # default
+            ctx.n_channels = 8
+        return 0
+
+    return adaptive_ingraph.program
+
+
+def replay_latencies(seed: int = 41) -> list:
+    """The reference test's stream, then ``N_LOG_UNIFORM`` seeded
+    log-uniform latencies of 1e3-1e7 ns (whole ns)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tail = np.rint(10.0 ** rng.uniform(3, 7, N_LOG_UNIFORM)).astype(np.int64)
+    return REF_STREAM + tail.tolist()
+
+
+def captured_loop(prog, tier: str, dev, nccl, gloo, lats, lib) -> dict:
+    """(b) ``sel.all_reduce`` on ``tier`` over a 1-rank NCCL group and a
+    16 MiB f32 ``x`` on the card: first ``lats`` eagerly (the branch
+    picked on the host), then the same stream as replays of one captured
+    step (the decision, the switch node over the branches, ``y``'s error
+    folded into a device running max, the algo written into a device log
+    at the write cursor, the state copied into the static state), every
+    replay under sync-debug ``"error"`` and its latency written by a
+    device fill.  Then a profiled window of replays, the device time of
+    a replay, and a capture over a gloo group, which must raise.  The
+    times are taken before the profiled window, outside sync-debug."""
+    import torch
+
+    from repro_torch.collectives import ingraph
+    from repro_torch.collectives.ingraph import (CURSOR_KEY, FAULT_KEY,
+                                                 InGraphSelector)
+    from repro_torch.core import graphs
+    from repro_torch.core.pair import pairs_to_words
+
+    sel = InGraphSelector(prog, tier=tier)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(X_BYTES // 4, device=dev, generator=gen)
+    lat = torch.zeros((), dtype=torch.int64, device=dev)
+    state = sel.init_state()
+    eager = []
+    t0 = time.perf_counter_ns()
+    for v in lats:
+        lat.fill_(v)
+        y, algo, state = sel.all_reduce(x, "data", state, group=nccl,
+                                        latency_ns=lat)
+        eager.append(int(algo))
+    eager_ns = time.perf_counter_ns() - t0
+    check(torch.equal(y, x), f"{tier}: an eager 1-rank all-reduce changed x")
+    eager_state = {k: v.cpu().numpy().tobytes() for k, v in state.items()}
+    syncs = sel.host_syncs
+    check(syncs == len(lats), f"{tier}: {syncs} host reads for "
+          f"{len(lats)} eager steps")
+
+    static = sel.init_state()
+    log = torch.full((len(lats),), -1, dtype=torch.int32, device=dev)
+    err = torch.zeros((), dtype=torch.float32, device=dev)
+    captures = graphs.captures
+    # each branch body also bumps its own device counter: which body
+    # each replay ran, read on the card (y == x on one rank whichever
+    # body runs, or if none does)
+    ran = torch.zeros(len(ingraph._BRANCHES), dtype=torch.int64,
+                      device=dev)
+    branches = ingraph._BRANCHES
+    ingraph._BRANCHES = [
+        (name, lambda v, grp, f=f, i=i: (ran[i:i + 1].add_(1),
+                                         f(v, grp))[1])
+        for i, (name, f) in enumerate(branches)]
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            cur = static[CURSOR_KEY].to(torch.int64) % len(lats)
+            y, algo, new = sel.all_reduce(x, "data", static, group=nccl,
+                                          latency_ns=lat)
+            log.index_copy_(0, cur, algo.reshape(1))
+            err.copy_(torch.maximum(err, (y - x).abs().max()))
+            for k in static:
+                static[k].copy_(new[k])
+    finally:
+        ingraph._BRANCHES = branches
+    check(graphs.captures == captures + 1,
+          f"{tier}: the captured step holds no switch node")
+    # the main path's launches: the eager run's and the capture's
+    launches = sel.kernel.launches32 if tier == "cuda32" \
+        else sel.kernel.launches
+    replays = [0]
+
+    def replay():
+        g.replay()
+        replays[0] += 1
+
+    debug_ns = []
+    torch.cuda.synchronize()
+    with sync_errors():
+        for v in lats:
+            t0 = time.perf_counter_ns()
+            lat.fill_(v)
+            replay()
+            debug_ns.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    got = log.cpu().tolist()
+    check(sel.host_syncs == syncs, f"{tier}: the replays read the host "
+          f"{sel.host_syncs - syncs} times")
+    check(got == eager, f"{tier}: captured algos differ from the eager "
+          f"run's at {[i for i, (a, b) in enumerate(zip(got, eager)) if a != b][:5]}")
+    bodies = ran.cpu().tolist()
+    check(bodies == [got.count(i) for i in range(len(bodies))],
+          f"{tier}: the bodies ran {bodies} times for algos "
+          f"{[got.count(i) for i in range(len(bodies))]}")
+    first = got[:len(REF_STREAM)]
+    check(first[0] == 0 and 2 in first and first[-1] == 0,
+          f"{tier}: the reference stream gave {first}")
+    for k in (*sel.map_names, FAULT_KEY, CURSOR_KEY):
+        check(static[k].cpu().numpy().tobytes() == eager_state[k],
+              f"{tier}: captured {k} differs from the eager run's")
+    lat_map = static["lat_map"].cpu()
+    count = int(pairs_to_words(lat_map)[0, 1]) if sel.word_width == 32 \
+        else int(lat_map[0, 1])
+    check(count == len(lats), f"{tier}: lat_map counted {count} decisions "
+          f"for {len(lats)} replays")
+    check(float(err) == 0.0, f"{tier}: y != x on a replay (max |y - x| "
+          f"{float(err)})")
+
+    # times, before any profiler session: host us per replay (outside
+    # sync-debug, which checks every call), device us per replay, and
+    # the same step without the all-reduce
+    host_ns = []
+    for v in lats[len(REF_STREAM):][:TIMING_REPS]:
+        t0 = time.perf_counter_ns()
+        lat.fill_(v)
+        replay()
+        host_ns.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    replay_ms, blocked_ms = replay_timing(lib, replay)
+    # the same step without the all-reduce (no switch node): what the
+    # switch node and its bodies add to a replay's launch
+    scratch = sel.init_state()
+    g2 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g2):
+        _, _, new = sel.decide(scratch, coll=0, msg_bytes=X_BYTES, n=1,
+                               latency_ns=lat)
+        for k in scratch:
+            scratch[k].copy_(new[k])
+    decide_ns = []
+    for _ in range(N_TRACE):
+        t0 = time.perf_counter_ns()
+        g2.replay()
+        decide_ns.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    decide_ms, decide_blocked_ms = replay_timing(lib, g2.replay)
+
+    # a profiled window: the decision kernel and the switch ran once per
+    # replay; the copies the profiler saw (a fixed number per replay plus
+    # the default body's clone of x) are reported: after the script's
+    # earlier profiler sessions it misses some inside the switch's
+    # bodies, whose runs the counters above hold
+    window = lats[:N_TRACE]
+    start = int(static[CURSOR_KEY].cpu().numpy().view("<u4")[0]) % len(lats)
+
+    def run():
+        for v in window:
+            lat.fill_(v)
+            replay()
+    trace = device_trace(run, n=len(window))
+    written = log.cpu().tolist()
+    defaults = [written[(start + i) % len(lats)]
+                for i in range(len(window))].count(0)
+    kname = {"cuda": "bpf_kernel", "cuda32": "bpf_kernel32"}.get(tier)
+    kernel_events = trace["by_name"].get(kname, {}).get("count", 0) \
+        if kname else 0
+    switch_events = sum(v["count"] for n, v in trace["by_name"].items()
+                        if n.startswith("bpf_switch_set"))
+    copies = len(trace["memcpy_us"])
+    nccl_events = sum(v["count"] for n, v in trace["by_name"].items()
+                      if "nccl" in n.lower())
+    if kname:
+        check(kernel_events == len(window), f"{tier}: {kernel_events} "
+              f"{kname} launches in {len(window)} replays")
+    check(switch_events == len(window), f"{tier}: {switch_events} switch "
+          f"settings in {len(window)} replays")
+    scratch = sel.init_state()
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            sel.all_reduce(x, "data", scratch, group=gloo, latency_ns=lat)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = ""
+    check("'gloo'" in refused, f"{tier}: a capture over a gloo group was "
+          f"not refused ({refused!r})")
+    return {"algos": got, "eager_algos": eager, "host_syncs": syncs,
+            "launches": launches, "replays": replays[0],
+            "eager_step_us": eager_ns / len(lats) / 1e3,
+            "replay_host_p50_us": pct(host_ns, 50) / 1e3,
+            "replay_host_p99_us": pct(host_ns, 99) / 1e3,
+            "replay_host_debug_p50_us": pct(debug_ns, 50) / 1e3,
+            "replay_device_us": replay_ms * 1e3,
+            "replay_behind_spin_host_ms": blocked_ms, "trace": trace,
+            "decide_only": {"host_p50_us": pct(decide_ns, 50) / 1e3,
+                            "device_us": decide_ms * 1e3,
+                            "behind_spin_host_ms": decide_blocked_ms},
+            "window": {"replays": len(window), "default": defaults,
+                       "kernel": kernel_events, "switch": switch_events,
+                       "copies": copies, "nccl": nccl_events},
+            "bodies": bodies,
+            "gloo_refused": refused, "sel": sel, "static": static}
+
+
+def empty_in_graph_ms(lib, n: int = 50) -> float:
+    """The duration of an empty <<<1,1>>> kernel inside a CUDA graph, as
+    ``torch.profiler`` reads a kernel node's (the bound of a policy
+    kernel timed the same way in a captured step)."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            check(lib.bpf_empty_launch(stream) == 0, "empty kernel launch")
+    g.replay()
+    trace = device_trace(lambda: [g.replay() for _ in range(4)], n=4 * n)
+    ev = next(v for k, v in trace["by_name"].items()
+              if k.startswith("bpf_empty"))
+    return ev["us_each"] / 1e3
+
+
+def replay_timing(lib, replay, spin_ns: int = 50_000_000) -> tuple:
+    """Device ms per replay of a captured step: CUDA events around
+    ``TIMING_REPS`` replays issued back to back.  First, the host ms of
+    one replay issued behind a ``spin_ns`` spin kernel: near 0 when a
+    replay only enqueues (the events then read device time), near the
+    spin when the launch waits for the stream's earlier work (the events
+    then also hold each launch's latency)."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    check(lib.bpf_spin_launch(stream, spin_ns) == 0, "spin kernel launch")
+    t0 = time.perf_counter_ns()
+    replay()
+    blocked_ms = (time.perf_counter_ns() - t0) / 1e6
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMING_REPS):
+        replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / TIMING_REPS, blocked_ms
+
+
+def sync_free_main_path(kernels, dev, lib, empty_ms: float, smi: str,
+                        eager_parts: dict) -> tuple:
+    """Phase 15 on the card: (a) :func:`predicated_on_card`; (b)
+    :func:`captured_loop` on ``cuda``, ``cuda32`` and ``torchc``, the
+    launch counts set to 0 just before and read just after, every tier's
+    algos equal; (c) the replay times beside phase 8's eager step parts.
+    Returns the ``@captured`` kernel-table rows of B1 and B2 and the
+    phase's record."""
+    import torch.distributed as dist
+
+    from repro_torch.core import graphs
+    from repro_torch.core.pair import words_to_pairs
+
+    t_phase = time.time()
+    pred = predicated_on_card(kernels, dev, lib)
+    pred_s = time.time() - t_phase
+    log("[predicated] every shipped policy: torchc.compile_predicated on "
+        "the card, eager under sync-debug 'error' and as replays of one "
+        "capture, bit-exact against B1 and the interpreter over "
+        f"{N_SAMPLES} samples, 0 host reads ({pred_s:.1f} s); per "
+        "decision ATen ops / eager host ms / replay device us / B1 device "
+        "us: " + "; ".join(
+            f"{n} {r['aten_ops']} / {r['eager_host_ms']:.3f} / "
+            f"{r['replay_device_us']:.1f} / {r['b1_device_us']:.2f}"
+            for n, r in pred.items()) + f"; {smi}")
+
+    prog = adaptive_ingraph_program()
+    lats = replay_latencies()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        runs = {}
+        for tier in ("cuda", "cuda32", "torchc"):
+            runs[tier] = captured_loop(prog, tier, dev, dist.group.WORLD,
+                                       gloo, lats, lib)
+    finally:
+        dist.destroy_process_group()
+    for tier in ("cuda32", "torchc"):
+        check(runs[tier]["algos"] == runs["cuda"]["algos"],
+              f"{tier}: captured algos differ from cuda's")
+    empty_graph_ms = empty_in_graph_ms(lib)
+    rows = []
+    for tier, label, kname in (("cuda", "policy_kernel", "bpf_kernel"),
+                               ("cuda32", "policy_kernel32",
+                                "bpf_kernel32")):
+        r = runs[tier]
+        sel = r["sel"]
+        check(r["launches"] > 0, f"{tier}: the policy kernel never launched")
+        st = {m: v for m, v in r["static"].items() if m in sel.map_names}
+        ctx = sel._ctx_vec({"coll_type": 0, "msg_size": X_BYTES,
+                            "n_ranks": 1, "comm_id": 0, "max_channels": 32,
+                            "dtype_bytes": 1_000})
+        t = kernel_timing(lib, sel.kernel,
+                          words_to_pairs(ctx) if tier == "cuda32"
+                          else ctx, st, pairs=tier == "cuda32")
+        check(t["max_abs_err"] == 0, f"{tier}: the kernel disagrees on the "
+              f"captured step's state (max abs err {t['max_abs_err']})")
+        ev = r["trace"]["by_name"][kname]
+        rows.append({"name": f"{label}[{prog.name}]@captured",
+                     "route": "cuda",
+                     "source": KERNEL32_SOURCE if tier == "cuda32"
+                     else KERNEL_SOURCE,
+                     "replaces": REPLACES32 if tier == "cuda32"
+                     else REPLACES,
+                     "launches": r["launches"],
+                     "graph_launches": r["replays"],
+                     "max_abs_err": t["max_abs_err"],
+                     "ms": ev["us_each"] / 1e3, "plain_ms": t["plain_ms"],
+                     "bound_ms": empty_graph_ms, "bound_by": "launch",
+                     "library_ms": None})
+    seconds = time.time() - t_phase
+    in_graph = " / ".join(f"{1e3 * r['ms']:.3f}" for r in rows)
+    log(f"[captured] adaptive_ingraph's all_reduce over a 1-rank NCCL "
+        f"group, x f32 {X_BYTES >> 20} MiB, captured once per tier and "
+        f"replayed {len(lats)} times (the reference stream, then "
+        f"{N_LOG_UNIFORM} log-uniform latencies) under sync-debug "
+        f"'error': algos equal to the eager run and across cuda, cuda32 "
+        f"and torchc, state bytes equal, lat_map counts {len(lats)}, y == "
+        f"x on every replay, a gloo capture refused; switch nodes "
+        f"{graphs.captures}; branch bodies run (default, ring, tree, "
+        f"bidir) per the device counters, equal to the algos: " + "; ".join(
+            f"{t} {r['bodies']}" for t, r in runs.items())
+        + f"; per tier (window of {N_TRACE} replays: kernel / switch / "
+        f"copies seen / default replays / nccl events): " + "; ".join(
+            f"{t} {r['window']['kernel']} / {r['window']['switch']} / "
+            f"{r['window']['copies']} / {r['window']['default']} / "
+            f"{r['window']['nccl']}" for t, r in runs.items()))
+    log("[captured time] per replay: host p50 / p99 us (p50 under "
+        "sync-debug), device us, busy share of the window; eager step "
+        "(all_reduce with its host read) us: " + "; ".join(
+            f"{t} {r['replay_host_p50_us']:.1f} / "
+            f"{r['replay_host_p99_us']:.1f} "
+            f"({r['replay_host_debug_p50_us']:.1f}), "
+            f"{r['replay_device_us']:.1f}, "
+            f"{100 * r['trace']['busy_share']:.2f}%; eager "
+            f"{r['eager_step_us']:.1f}" for t, r in runs.items())
+        + "; phase 8's eager step parts (us): " + "; ".join(
+            f"{t} " + " ".join(f"{k} {v:.1f}" for k, v in p.items())
+            for t, p in eager_parts.items())
+        + "; the step without the all-reduce (no switch node), host p50 / "
+        "device us: " + "; ".join(
+            f"{t} {r['decide_only']['host_p50_us']:.1f} / "
+            f"{r['decide_only']['device_us']:.1f}" for t, r in runs.items())
+        + "; a launch behind a 50 ms spin took (host ms) " + "; ".join(
+            f"{t} {r['replay_behind_spin_host_ms']:.2f} with the switch, "
+            f"{r['decide_only']['behind_spin_host_ms']:.2f} without"
+            for t, r in runs.items())
+        + f"; B1 / B2 in a replay {in_graph} us against an empty kernel "
+        f"in a graph {1e3 * empty_graph_ms:.3f} us"
+        + f" ({seconds:.1f} s for the phase); {smi}")
+    record = {"seconds": seconds, "predicated_s": pred_s,
+              "predicated": pred,
+              "captured": {t: {k: v for k, v in r.items()
+                               if k not in ("sel", "static", "algos",
+                                            "eager_algos")}
+                           for t, r in runs.items()},
+              "switch_nodes": graphs.captures,
+              "empty_in_graph_ms": empty_graph_ms}
+    return rows, record
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     # cuBLAS's fixed workspace: phase 13 trains with deterministic
@@ -3260,6 +3843,11 @@ def main() -> int:
                                            smi)
     table.extend(launch_rows)
 
+    # ---- 15. the sync-free in-graph step -----------------------------------
+    sync_rows, sync_free = sync_free_main_path(kernels, dev, lib, empty_ms,
+                                               smi, ig_parts)
+    table.extend(sync_rows)
+
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
@@ -3289,6 +3877,7 @@ def main() -> int:
                                           if k != "stragglers"},
                              "seconds": host_s},
               "serving": serving, "training": training, "launch": launch,
+              "sync_free": sync_free,
               "kernels": table, "wall_s": time.time() - t_start}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

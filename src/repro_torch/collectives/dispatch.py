@@ -677,8 +677,10 @@ class CollectiveDispatcher:
         :class:`~repro_torch.collectives.ingraph.InGraphSelector` built
         from the highest-precedence attached tuner program (``tier=
         "cuda"`` for the CUDA policy kernel over u64 words, ``"cuda32"``
-        for the pair-form kernel, ``"torch"`` for the plain version on
-        the CPU) plus device-resident map state seeded from THIS
+        for the pair-form kernel, ``"torchc"`` for ``torchc``'s
+        predicated lowering as tensor ops on the card, ``"torch"`` for
+        the plain version on the CPU) plus device-resident map state
+        seeded from THIS
         runtime's live maps — host-accumulated telemetry moves to the
         device, and from then on decisions run there.  Thread ``state``
         through the steps; ``merge_shard_states`` (or

@@ -4,25 +4,37 @@ algorithm per STEP, with its map state resident on the device.
 The port of ``repro/collectives/ingraph.py``.  The policy kernel reads
 live telemetry from a map state the caller threads through its steps
 (a dict of device tensors), and its decision picks one of the
-pre-built algorithm branches.  Three tiers share the entry point:
+pre-built algorithm branches.  Four tiers share the entry point:
 
   * ``tier="cuda"`` (the default) — the hand-written CUDA policy kernel
     (:mod:`repro_torch.core.cudac`, B1) over u64 words;
   * ``tier="cuda32"`` — the same decision as the pair-form kernel (B2)
     over ``[lo, hi]`` pairs (:mod:`repro_torch.core.pair`);
+  * ``tier="torchc"`` — ``torchc``'s predicated lowering
+    (:func:`repro_torch.core.torchc.compile_predicated`, the port of the
+    reference's ``jaxc`` tier) as tensor ops, on the card unless
+    ``device="cpu"`` is asked for;
   * ``tier="torch"`` — the kernel's plain PyTorch version on the CPU.
 
-``cuda`` and ``cuda32`` raise :class:`~repro_torch.device.DeviceError`
-without a CUDA device.
+``cuda``, ``cuda32`` and ``torchc`` raise
+:class:`~repro_torch.device.DeviceError` without a CUDA device (``torchc``
+unless given ``device="cpu"``).
 
-One difference from the reference, by necessity: torch has no
-``lax.switch``, so :meth:`InGraphSelector.all_reduce` reads the chosen
-algorithm on the host — one ``int(algo)`` per step, counted in
-:attr:`InGraphSelector.host_syncs` — where the reference's step makes
-zero host round trips.  :meth:`InGraphSelector.decide` itself never
-synchronises: the ctx goes up from pinned memory without blocking, the
-kernel launches on the current stream, and the domain clamp and the
-counter updates are device ops.
+:meth:`InGraphSelector.decide` never synchronises: the ctx goes up from
+pinned memory without blocking (inside a capture it is built on the card
+by fills), the kernel launches on the current stream, and the domain
+clamp and the counter updates are device ops.  Eagerly,
+:meth:`InGraphSelector.all_reduce` picks the branch on the host — one
+``int(algo)`` per step, counted in :attr:`InGraphSelector.host_syncs`,
+since a ``torch.distributed`` call is issued by the host.  Called inside
+a ``torch.cuda.graph`` capture, it is the reference's ``lax.switch``:
+the decision and every branch are captured, and a switch node
+(:mod:`repro_torch.core.graphs`) picks the branch on the card at each
+replay, with no host read.  A captured step needs a group whose backend
+a graph can capture (NCCL), one eager step on the same shapes before the
+capture (NCCL's communicator, the kernels' builds, the allocator), and
+static state: the step copies the state ``all_reduce`` returns into the
+tensors it was given, as any static-buffer CUDA-graph code does.
 
 The CUDA kernel updates its maps in place, while the reference's
 ``decide`` returns a new state and leaves the caller's untouched (the
@@ -38,6 +50,17 @@ Usage::
     ...each step:
     y, algo, state = sel.all_reduce(x, "data", state, group=pg,
                                     latency_ns=obs)
+
+    ...or captured once (``pg`` an NCCL group, ``obs`` a tensor on the
+    card written before each replay):
+    sel.all_reduce(x, "data", state, group=pg, latency_ns=obs)  # warm-up
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, algo, new = sel.all_reduce(x, "data", state, group=pg,
+                                      latency_ns=obs)
+        for k in state:
+            state[k].copy_(new[k])
+    ...each step: obs.fill_(latency); g.replay()
 """
 
 from __future__ import annotations
@@ -48,15 +71,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import graphs
 from ..core import shardmerge as _sm
 from ..core.context import CollType, POLICY_CONTEXT
 from ..core.cudac import PolicyKernel, check_supported32
 from ..core.maps import MapRegistry
 from ..core.pair import map_to_array32, words_to_pairs
 from ..core.program import Program
-from ..core.torchc import map_to_array, written_map_names
+from ..core.torchc import (check_supported, compile_predicated,
+                           map_to_array, written_map_names)
 from ..core.verifier import verify_with_info
-from ..device import require_cuda
+from ..device import require_cuda, resolve_device
 from . import algorithms as alg
 
 _FIELDS = list(POLICY_CONTEXT.fields)
@@ -71,7 +96,7 @@ _BRANCHES = [
                                                          n_channels=2)),
 ]
 
-TIERS = ("torch", "cuda", "cuda32")
+TIERS = ("torch", "cuda", "cuda32", "torchc")
 
 # extra state leaf carrying the in-graph fault flag: the kernel cannot
 # throw, so out-of-domain decisions are clamped on the device and counted
@@ -95,29 +120,51 @@ _MAX_CHANNELS = 32
 class InGraphSelector:
     TIERS = TIERS
 
-    def __init__(self, program: Program, *, tier: str = "cuda"):
+    def __init__(self, program: Program, *, tier: str = "cuda",
+                 device=None):
+        """``device`` is where ``tier="torchc"`` runs: the card when
+        None, the CPU with ``"cpu"``; the other tiers take none."""
         if tier not in TIERS:
             raise ValueError(f"unknown in-graph tier {tier!r}; "
                              f"use one of {', '.join(TIERS)}")
-        if tier == "cuda32":
-            check_supported32(program)
-        self.device = require_cuda(f"InGraphSelector(tier={tier!r})") \
-            if tier != "torch" else torch.device("cpu")
+        what = f"InGraphSelector(tier={tier!r})"
+        if tier == "torchc":
+            check_supported(program)        # the reference jaxc's messages
+            self.device = resolve_device(device, what)
+        elif device is not None:
+            raise ValueError(f"{what} takes no device (its device is the "
+                             "tier's); device= is for tier='torchc'")
+        elif tier == "torch":
+            self.device = torch.device("cpu")
+        else:
+            if tier == "cuda32":
+                check_supported32(program)
+            self.device = require_cuda(what)
         vinfo = verify_with_info(program)
         self.program = program
         self.tier = tier
         self.word_width = 32 if tier == "cuda32" else 64
+        # the program's CUDA kernel (B1 / B2); tier "torchc" never
+        # launches it, its launches stay 0
         self.kernel = PolicyKernel(program, vinfo)
+        self._predicated = compile_predicated(program, vinfo)[0] \
+            if tier == "torchc" else None
         if self.device.type == "cuda":
-            self.kernel.build()
+            if tier != "torchc":
+                self.kernel.build()
+            graphs.build()
         self.map_names = list(self.kernel.names)
         # maps the verified program can write — the only leaves decide()
         # copies and the shard merge reconciles (lookup-only state can't
         # diverge)
         self.written_names = written_map_names(program, vinfo) \
             & set(self.map_names)
-        # host reads of the chosen algorithm (one per all_reduce step)
+        # host reads of the chosen algorithm (one per eager all_reduce
+        # step; a captured step reads nothing)
         self.host_syncs = 0
+        # memory pools of captured switch nodes' bodies: a graph replays
+        # into them for as long as it lives
+        self._body_pools: List[object] = []
 
     def init_state(self, registry: Optional[MapRegistry] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -154,7 +201,14 @@ class InGraphSelector:
         * 2**32`` in the input's float dtype (a Python float is float32
         there, as in JAX without x64), so the policy sees the same bits; a
         tensor integer rides the lo lane (``v mod 2**32``).  On the 64-bit
-        path a value converts to u64 (floats truncate)."""
+        path a value converts to u64 (floats truncate).
+
+        Inside a CUDA-graph capture a copy from host memory would read
+        its buffer at every replay, so the words are fills on the device
+        and a tensor value must already lie there (a host tensor would
+        be read once, at capture); a Python or numpy value is a constant
+        of the graph, like the message size."""
+        capturing = graphs.capturing()
         words = [0] * len(_FIELDS)
         traced = []
         for name, v in fields.items():
@@ -166,14 +220,28 @@ class InGraphSelector:
                 v = torch.as_tensor(np.asarray(v))
                 if self.word_width == 32 and v.dtype == torch.float64:
                     v = v.to(torch.float32)
+                if capturing:
+                    v = torch.full((), v.item(), dtype=v.dtype,
+                                   device=self.device)
+            elif capturing and v.device != self.device:
+                raise ValueError(
+                    f"ctx field {name!r}: a captured step reads a tensor "
+                    f"on {self.device}, got one on {v.device} (its value "
+                    "would be read once, at capture)")
             traced.append((_IDX[name], v))
-        host = torch.tensor(words, dtype=torch.int64)
-        if self.device.type == "cuda":
+        if capturing:
+            vec = torch.zeros(len(_FIELDS), dtype=torch.int64,
+                              device=self.device)
+            for i, w in enumerate(words):
+                if w:
+                    vec[i].fill_(w)     # a fill: no host tensor to copy
+        elif self.device.type == "cuda":
             # pinned and non-blocking: the copy never waits for the
             # stream's earlier work
-            vec = host.pin_memory().to(self.device, non_blocking=True)
+            vec = torch.tensor(words, dtype=torch.int64).pin_memory().to(
+                self.device, non_blocking=True)
         else:
-            vec = host
+            vec = torch.tensor(words, dtype=torch.int64)
         for i, v in traced:
             v = v.to(self.device).reshape(())
             if v.is_floating_point() and self.word_width == 32:
@@ -194,7 +262,9 @@ class InGraphSelector:
         """Run the verified policy on the device.
 
         Returns ``(algo, channels, new_state)``: two int32 scalars on the
-        state's device and a new state; ``state`` itself is unchanged."""
+        state's device and a new state; ``state`` itself is unchanged (a
+        captured step copies ``new_state`` into the tensors of its static
+        ``state``)."""
         fields: Dict[str, object] = {
             "coll_type": int(coll), "msg_size": int(msg_bytes),
             "n_ranks": int(n), "comm_id": int(comm_id),
@@ -206,20 +276,28 @@ class InGraphSelector:
         vec = self._ctx_vec(fields)
         flags = state.get(FAULT_KEY)
         cursor = state.get(CURSOR_KEY)
-        prog_state = {k: (v.clone() if k in self.written_names else v)
-                      for k, v in state.items()
+        prog_state = {k: v for k, v in state.items()
                       if k not in (FAULT_KEY, CURSOR_KEY)}
-        if self.word_width == 32:
-            vec2 = words_to_pairs(vec)
-            ret = torch.zeros(2, dtype=torch.int32, device=self.device)
-            self.kernel.launch32(vec2, ret, prog_state)
-            raw_algo = vec2[_IDX["algorithm"], 0]
-            raw_ch = vec2[_IDX["n_channels"], 0]
-        else:
-            ret = torch.zeros(1, dtype=torch.int64, device=self.device)
-            self.kernel.launch(vec, ret, prog_state)
+        if self.tier == "torchc":
+            # functional: written maps come back as new tensors
+            _, vec, prog_state = self._predicated(vec, prog_state)
             raw_algo = vec[_IDX["algorithm"]].to(torch.int32)
             raw_ch = vec[_IDX["n_channels"]].to(torch.int32)
+        else:
+            # the kernel writes in place: copy the leaves it can write
+            prog_state = {k: (v.clone() if k in self.written_names else v)
+                          for k, v in prog_state.items()}
+            if self.word_width == 32:
+                vec2 = words_to_pairs(vec)
+                ret = torch.zeros(2, dtype=torch.int32, device=self.device)
+                self.kernel.launch32(vec2, ret, prog_state)
+                raw_algo = vec2[_IDX["algorithm"], 0]
+                raw_ch = vec2[_IDX["n_channels"], 0]
+            else:
+                ret = torch.zeros(1, dtype=torch.int64, device=self.device)
+                self.kernel.launch(vec, ret, prog_state)
+                raw_algo = vec[_IDX["algorithm"]].to(torch.int32)
+                raw_ch = vec[_IDX["n_channels"]].to(torch.int32)
         # the kernel cannot throw, so the domain guard is a clamp on the
         # device; any clamp that changed the value bumps the fault flag
         algo = raw_algo.clamp(0, len(_BRANCHES) - 1)
@@ -317,17 +395,42 @@ class InGraphSelector:
                    group=None, comm_id: int = 0, latency_ns=None):
         """Policy-selected all-reduce over ``group`` (``axis_name`` names
         the axis, as in the reference).  The decision stays on the
-        device; the branch is picked on the host with one ``int(algo)``
-        (counted in :attr:`host_syncs`).  Returns ``(y, algo, state)``."""
+        device.  Eagerly the branch is picked on the host with one
+        ``int(algo)`` (counted in :attr:`host_syncs`); inside a CUDA-graph
+        capture every branch is captured into a switch node and the card
+        picks one at each replay (``y`` is then a tensor of the graph).
+        Returns ``(y, algo, state)``."""
+        capturing = graphs.capturing()
+        if capturing:
+            _check_capturable(group)
         n = dist.get_world_size(group)
         algo, _, state = self.decide(
             state, coll=CollType.ALL_REDUCE,
             msg_bytes=x.numel() * x.element_size(), n=n,
             comm_id=comm_id, latency_ns=latency_ns)
+        if capturing:
+            pool = torch.cuda.MemPool()
+            self._body_pools.append(pool)
+            y = graphs.captured_switch(
+                algo, [lambda f=f: f(x, group) for _, f in _BRANCHES],
+                torch.empty_like(x), pool)
+            return y, algo, state
         pick = int(algo)
         self.host_syncs += 1
         y = _BRANCHES[pick][1](x, group)
         return y, algo, state
+
+
+def _check_capturable(group) -> None:
+    """A captured collective needs a backend whose work a CUDA graph can
+    hold: NCCL's kernels run on the capturing stream, gloo's run on the
+    host."""
+    backend = str(dist.get_backend(group))
+    if "nccl" not in backend:
+        raise RuntimeError(
+            f"InGraphSelector.all_reduce inside a CUDA-graph capture needs "
+            f"an NCCL group; this group's backend is {backend!r}, whose "
+            "collectives run on the host and cannot be captured")
 
 
 __all__ = ["InGraphSelector", "FAULT_KEY", "CURSOR_KEY", "TIERS"]

@@ -252,3 +252,149 @@ def test_ingraph_selector_on_the_card_matches_torch(card, tier):
     launched = sel.kernel.launches32 if tier == "cuda32" \
         else sel.kernel.launches
     assert launched == 100
+
+
+# ---------------------------------------------------------------------------
+# the sync-free in-graph step: torchc's predicated lowering and the
+# captured all_reduce
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pol", ALL_POLICIES, ids=lambda p: p.program.name)
+def test_predicated_on_the_card_equals_the_kernel(card, pol):
+    """compile_predicated on the card, eagerly under sync-debug "error"
+    and as replays of one capture, equals B1 bit for bit."""
+    prog = pol.program
+    k = cudac.PolicyKernel(prog).build()
+    fn, names = torchc.compile_predicated(prog, k.vinfo)
+    host = samples.make_maps(prog, np.random.default_rng(33))
+    start = {n: torchc.map_to_array(m, card) for n, m in host.items()}
+    rng = np.random.default_rng(34)
+    ctxs = [torchc.ctx_to_vec(samples.make_ctx(prog, rng), card)
+            for _ in range(3)]
+    k_maps = {n: t.clone() for n, t in start.items()}
+    p_maps = {n: t.clone() for n, t in start.items()}
+    s_ctx = ctxs[0].clone()
+    s_maps = {n: t.clone() for n, t in start.items()}
+    fn(s_ctx, s_maps)                       # warm-up before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        g_ret, g_ctx, g_maps = fn(s_ctx, s_maps)
+    for c in ctxs:
+        kc = c.clone()
+        kr = torch.zeros(1, dtype=torch.int64, device=card)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            k.launch(kc, kr, k_maps)
+            ret, ctx, p_maps = fn(c, p_maps)
+            s_ctx.copy_(c)
+            g.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(ret) == int(kr[0]) == int(g_ret)
+        assert torch.equal(ctx, kc) and torch.equal(g_ctx, kc)
+        for n in names:
+            assert torch.equal(p_maps[n], k_maps[n]), n
+            assert torch.equal(g_maps[n], k_maps[n]), n
+            s_maps[n].copy_(g_maps[n])
+
+
+@pytest.fixture
+def nccl_and_gloo(card):
+    """A 1-rank NCCL group on the card (the default group) and a 1-rank
+    gloo group beside it."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD, dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def _adaptive_program():
+    import repro_torch.core as core
+    lat_map = core.map_decl("lat_map", kind="array", value_size=16,
+                            max_entries=4)
+
+    @core.policy(section="tuner", maps=[lat_map])
+    def adaptive_ingraph(ctx):
+        st = lat_map.lookup(0)
+        if st is None:
+            ctx.algorithm = 0
+            return 0
+        if st[0] == 0:
+            st[0] = ctx.dtype_bytes
+        else:
+            st[0] = (st[0] * 3 + ctx.dtype_bytes) // 4
+        st[1] = st[1] + 1
+        if st[0] > 1000000:
+            ctx.algorithm = 2
+            ctx.n_channels = 2
+        else:
+            ctx.algorithm = 0
+            ctx.n_channels = 8
+        return 0
+
+    return adaptive_ingraph.program
+
+
+@pytest.mark.parametrize("tier", ["cuda", "cuda32", "torchc"])
+def test_captured_step_picks_the_branch_on_the_card(card, nccl_and_gloo,
+                                                    tier):
+    """sel.all_reduce captured once over a 1-rank NCCL group: its replays
+    make no host read and give the eager run's algos and state."""
+    from repro_torch.collectives.ingraph import CURSOR_KEY, InGraphSelector
+    nccl, gloo = nccl_and_gloo
+    lats = [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8
+    sel = InGraphSelector(_adaptive_program(), tier=tier)
+    x = torch.arange(1 << 16, dtype=torch.float32, device=card)
+    lat = torch.zeros((), dtype=torch.int64, device=card)
+    state, eager = sel.init_state(), []
+    for v in lats:
+        lat.fill_(v)
+        y, algo, state = sel.all_reduce(x, "data", state, group=nccl,
+                                        latency_ns=lat)
+        eager.append(int(algo))
+    assert eager[0] == 0 and 2 in eager and eager[-1] == 0
+    syncs = sel.host_syncs
+    static = sel.init_state()
+    log = torch.full((len(lats),), -1, dtype=torch.int32, device=card)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cur = static[CURSOR_KEY].to(torch.int64)
+        y, algo, new = sel.all_reduce(x, "data", static, group=nccl,
+                                      latency_ns=lat)
+        log.index_copy_(0, cur, algo.reshape(1))
+        for key in static:
+            static[key].copy_(new[key])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for v in lats:
+            lat.fill_(v)
+            g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert log.tolist() == eager
+    assert sel.host_syncs == syncs
+    assert torch.equal(y, x)
+    for key in static:
+        assert torch.equal(static[key], state[key]), key
+
+
+def test_a_capture_over_a_gloo_group_raises(card, nccl_and_gloo):
+    from repro_torch.collectives.ingraph import InGraphSelector
+    _, gloo = nccl_and_gloo
+    sel = InGraphSelector(_adaptive_program(), tier="cuda")
+    state = sel.init_state()
+    x = torch.ones(8, device=card)
+    with pytest.raises(RuntimeError, match="backend is 'gloo'"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            sel.all_reduce(x, "data", state, group=gloo,
+                           latency_ns=torch.zeros((), dtype=torch.int64,
+                                                  device=card))

@@ -1,9 +1,10 @@
 """In-graph policy selection, port against reference.
 
 ``repro_torch.collectives.ingraph.InGraphSelector`` on ``tier="torch"``
-(the plain PyTorch policy kernel on the CPU) and on ``tier="cuda32"``'s
+(the plain PyTorch policy kernel on the CPU), on ``tier="cuda32"``'s
 pair path (the same selector with its device pinned to the CPU, where
-the pair-form kernel's wrapper runs its plain version) against the
+the pair-form kernel's wrapper runs its plain version) and on
+``tier="torchc"`` with ``device="cpu"`` (the predicated lowering) against the
 reference's ``InGraphSelector`` on ``tier="pallas32"`` and ``"pallas"``
 (the Pallas kernels in interpret mode, jitted as the reference's tests
 run them).  A seeded 200-step loop of ``adaptive_ingraph``
@@ -30,9 +31,11 @@ from repro.collectives.ingraph import InGraphSelector as RefSelector
 from repro.compat import enable_x64
 from repro.core.shardmerge import pairs_to_u64
 from repro_torch.collectives import ingraph
+from repro_torch.core import graphs
 from repro_torch.collectives.ingraph import (CURSOR_KEY, FAULT_KEY,
                                              InGraphSelector)
 from repro_torch.core.cudac import CudacError
+from repro_torch.core.torchc import TorchcError
 from repro_torch.device import DeviceError
 
 N_STEPS = 200
@@ -151,6 +154,9 @@ def _reference_run(name: str, tier: str):
 
 
 def _port_selector(prog, tier: str, monkeypatch) -> InGraphSelector:
+    if tier == "torchc@cpu":
+        # the predicated lowering, asked for on the CPU
+        return InGraphSelector(prog, tier="torchc", device="cpu")
     if tier == "cuda32@cpu":
         # the cuda32 selector with its device pinned to the CPU: its
         # pair-form path runs, through the wrapper's plain version
@@ -160,7 +166,7 @@ def _port_selector(prog, tier: str, monkeypatch) -> InGraphSelector:
     return InGraphSelector(prog, tier=tier)
 
 
-@pytest.mark.parametrize("port_tier", ["torch", "cuda32@cpu"])
+@pytest.mark.parametrize("port_tier", ["torch", "cuda32@cpu", "torchc@cpu"])
 @pytest.mark.parametrize("ref_tier", ["pallas32", "pallas"])
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_decisions_and_state_match_reference(name, ref_tier, port_tier,
@@ -185,7 +191,7 @@ def test_decisions_and_state_match_reference(name, ref_tier, port_tier,
         assert algos == {0, 2}
 
 
-@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu"])
+@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu", "torchc@cpu"])
 def test_decide_leaves_the_old_state_unchanged(tier, monkeypatch):
     sel = _port_selector(port_tel.bucket_tuner.program, tier, monkeypatch)
     base = sel.init_state()
@@ -207,7 +213,7 @@ def test_decide_leaves_the_old_state_unchanged(tier, monkeypatch):
     assert st2["config_lat_map"] is st["config_lat_map"]
 
 
-@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu"])
+@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu", "torchc@cpu"])
 def test_float_latency_above_2_32_reaches_the_policy_exactly(tier,
                                                              monkeypatch):
     """The 32-bit path splits a float latency into hi/lo lanes in
@@ -229,7 +235,7 @@ def test_float_latency_above_2_32_reaches_the_policy_exactly(tier,
     assert np.array_equal(got, _u64(rst["lat_map"], True))
 
 
-@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu"])
+@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu", "torchc@cpu"])
 def test_clamp_counts_faults_and_counters_wrap_like_reference(tier,
                                                               monkeypatch):
     sel = _port_selector(_out_of_domain(port_core), tier, monkeypatch)
@@ -257,7 +263,7 @@ def test_clamp_counts_faults_and_counters_wrap_like_reference(tier,
 
 
 def test_tiers_and_errors():
-    assert InGraphSelector.TIERS == ("torch", "cuda", "cuda32")
+    assert InGraphSelector.TIERS == ("torch", "cuda", "cuda32", "torchc")
     with pytest.raises(ValueError, match="unknown in-graph tier"):
         InGraphSelector(port_tel.bucket_tuner.program, tier="pallas")
     from repro_torch.policies.profiler import straggler_trap
@@ -292,8 +298,10 @@ def one_rank_group():
         dist.destroy_process_group()
 
 
-def test_all_reduce_reads_one_decision_per_step(one_rank_group):
-    sel = InGraphSelector(_adaptive(port_core), tier="torch")
+@pytest.mark.parametrize("tier", ["torch", "torchc@cpu"])
+def test_all_reduce_reads_one_decision_per_step(one_rank_group, tier,
+                                                monkeypatch):
+    sel = _port_selector(_adaptive(port_core), tier, monkeypatch)
     state = sel.init_state()
     x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
     picks = []
@@ -306,3 +314,100 @@ def test_all_reduce_reads_one_decision_per_step(one_rank_group):
     assert picks[0] == 0 and picks[-1] == 2
     assert sel.host_syncs == 7
     assert int(state[CURSOR_KEY][0]) == 7
+
+
+def test_torchc_tier_needs_a_device_or_the_cpu():
+    prog = port_tel.bucket_tuner.program
+    if not torch.cuda.is_available():
+        with pytest.raises(DeviceError, match="torchc"):
+            InGraphSelector(prog, tier="torchc")
+    assert InGraphSelector(prog, tier="torchc", device="cpu").device \
+        == torch.device("cpu")
+    with pytest.raises(ValueError, match="device= is for tier='torchc'"):
+        InGraphSelector(prog, tier="torch", device="cpu")
+
+
+def test_torchc_tier_rejects_what_jaxc_rejects():
+    """The reference's jaxc tier and the port's torchc tier refuse a
+    wall-clock helper with one message."""
+    from repro.core import assemble as ref_assemble
+    from repro.core.jaxc import JaxcError
+    from repro_torch.core import assemble
+    text = """
+        call   ktime_get_ns
+        mov64  r0, 0
+        exit
+    """
+    with pytest.raises(JaxcError) as ref:
+        RefSelector(ref_assemble(text, name="clock", section="tuner"),
+                    tier="jaxc")
+    with pytest.raises(TorchcError) as got:
+        InGraphSelector(assemble(text, name="clock", section="tuner"),
+                        tier="torchc", device="cpu")
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu", "torchc@cpu"])
+def test_the_reference_tests_adaptive_stream(tier, monkeypatch):
+    """The stream of tests/test_ingraph_dispatch.py's
+    ``test_decisions_adapt_without_retrace``: fast, slow, recovered; the
+    reference's decisions and ``lat_map`` (its jaxc tier)."""
+    lats = [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8
+    ref = RefSelector(_adaptive(ref_core))
+    rstate = ref.init_state()
+    step = jax.jit(lambda st, lat: ref.decide(
+        st, coll=0, msg_bytes=1 << 20, n=8, latency_ns=lat))
+    want = []
+    with enable_x64(True):
+        for lat in lats:
+            algo, _, rstate = step(rstate, jnp.uint32(lat))
+            want.append(int(algo))
+    sel = _port_selector(_adaptive(port_core), tier, monkeypatch)
+    state = sel.init_state()
+    seen = []
+    for lat in lats:
+        algo, _, state = sel.decide(state, coll=0, msg_bytes=1 << 20, n=8,
+                                    latency_ns=torch.tensor(lat))
+        seen.append(int(algo))
+    assert seen == want
+    assert seen[0] == 0 and 2 in seen and seen[-1] == 0
+    got = _port_leaves(sel, state)["lat_map"]
+    assert int(got[0, 1]) == len(seen)
+    assert np.array_equal(got, np.asarray(rstate["lat_map"]).astype("<u8"))
+
+
+@pytest.mark.parametrize("tier", ["torch", "cuda32@cpu", "torchc@cpu"])
+def test_the_capture_path_builds_the_eager_ctx(tier, monkeypatch):
+    """Inside a capture the ctx words are fills on the device, not a copy
+    from host memory: the same words as the eager path, and the same
+    decision and state."""
+    sel = _port_selector(_adaptive(port_core), tier, monkeypatch)
+    for lat in (np.float32(6.123456789e9), torch.tensor(np.float32(5e6)),
+                12_345, torch.tensor(7), (1 << 64) - 5):
+        fields = {"coll_type": 2, "msg_size": 1 << 30, "n_ranks": 8,
+                  "comm_id": 3, "max_channels": 32, "dtype_bytes": lat}
+        eager = sel._ctx_vec(fields)
+        state = sel.init_state()
+        e_out = sel.decide(state, coll=2, msg_bytes=1 << 30, n=8,
+                           latency_ns=lat)
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "capturing", lambda: True)
+            captured = sel._ctx_vec(fields)
+            c_out = sel.decide(state, coll=2, msg_bytes=1 << 30, n=8,
+                               latency_ns=lat)
+        assert torch.equal(captured, eager), lat
+        assert [int(t) for t in c_out[:2]] == [int(t) for t in e_out[:2]]
+        for k in state:
+            assert torch.equal(c_out[2][k], e_out[2][k]), (lat, k)
+
+
+def test_a_capture_with_a_gloo_group_raises(one_rank_group, monkeypatch):
+    """gloo's collectives run on the host, so a captured step over a gloo
+    group is refused before it decides, with the backend named."""
+    sel = InGraphSelector(_adaptive(port_core), tier="torch")
+    state = sel.init_state()
+    monkeypatch.setattr(graphs, "capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="backend is 'gloo'"):
+        sel.all_reduce(torch.ones(4), "data", state, group=one_rank_group,
+                       latency_ns=torch.tensor(1_000.0))
+    assert sel.host_syncs == 0
