@@ -195,8 +195,13 @@ Phases (any failure exits non-zero and prints no result line):
    the window's busy share, beside phase 8's eager step parts and the
    same step captured without the all-reduce;
    ``@captured`` rows for B1 and B2 (the kernel's duration in a replay
-   beside an empty kernel's in a graph).  Nothing in the phase is
-   caught.
+   beside an empty kernel's in a graph).  (d) ``torchc`` selectors built
+   with ``device=None``, ``"cuda"`` and ``"cuda:<current>"``, each one's
+   ``all_reduce`` captured over the same group with the latency a tensor
+   on the card and replayed over the first 64 latencies under
+   sync-debug ``"error"``: every selector holds the card as its tensors
+   report it, and each run gives ``device=None``'s algos and state bytes
+   with 0 host reads.  Nothing in the phase is caught.
 
 The last three lines are the kernel table, the card's name and power
 limit, and the device record; the full record also goes to
@@ -2924,6 +2929,7 @@ def launch_main_path(dev, lib, empty_ms: float, training: dict,
 REF_STREAM = [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8
 N_LOG_UNIFORM = 1_000       # seeded log-uniform latencies, 1e3-1e7 ns
 X_BYTES = 16 << 20          # the captured step's all-reduce payload
+N_DEVICE_REPLAYS = 64       # (d): replays per spelling of the card
 
 
 def op_probe():
@@ -3301,6 +3307,53 @@ def captured_loop(prog, tier: str, dev, nccl, gloo, lats, lib) -> dict:
             "gloo_refused": refused, "sel": sel, "static": static}
 
 
+def captured_device_spellings(prog, dev, nccl, lats) -> dict:
+    """(d) ROADMAP C10: ``torchc`` selectors built with ``device=None``,
+    ``"cuda"`` and ``"cuda:<current>"``; each one's ``all_reduce``
+    captured as in (b), over the same 1-rank NCCL group with a latency
+    tensor on the card, and replayed over ``lats`` under sync-debug
+    ``"error"``.  Per spelling: the device the selector holds, the
+    algorithm log, the state bytes, its host reads and max |y - x|."""
+    import torch
+
+    from repro_torch.collectives.ingraph import CURSOR_KEY, InGraphSelector
+    from repro_torch.core import graphs
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(X_BYTES // 4, device=dev, generator=gen)
+    lat = torch.zeros((), dtype=torch.int64, device=dev)
+    out = {}
+    for spelling in (None, "cuda", f"cuda:{torch.cuda.current_device()}"):
+        sel = InGraphSelector(prog, tier="torchc", device=spelling)
+        static = sel.init_state()
+        algos = torch.full((len(lats),), -1, dtype=torch.int32, device=dev)
+        err = torch.zeros((), dtype=torch.float32, device=dev)
+        captures = graphs.captures
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            cur = static[CURSOR_KEY].to(torch.int64)
+            y, algo, new = sel.all_reduce(x, "data", static, group=nccl,
+                                          latency_ns=lat)
+            algos.index_copy_(0, cur, algo.reshape(1))
+            err.copy_(torch.maximum(err, (y - x).abs().max()))
+            for k in static:
+                static[k].copy_(new[k])
+        check(graphs.captures == captures + 1, f"device={spelling!r}: the "
+              "captured step holds no switch node")
+        torch.cuda.synchronize()
+        with sync_errors():
+            for v in lats:
+                lat.fill_(v)
+                g.replay()
+        torch.cuda.synchronize()
+        out[repr(spelling)] = {
+            "device": str(sel.device), "algos": algos.cpu().tolist(),
+            "state": {k: v.cpu().numpy().tobytes()
+                      for k, v in static.items()},
+            "host_syncs": sel.host_syncs, "max_abs_err": float(err)}
+    return out
+
+
 def empty_in_graph_ms(lib, n: int = 50) -> float:
     """The duration of an empty <<<1,1>>> kernel inside a CUDA graph, as
     ``torch.profiler`` reads a kernel node's (the bound of a policy
@@ -3349,8 +3402,9 @@ def sync_free_main_path(kernels, dev, lib, empty_ms: float, smi: str,
     """Phase 15 on the card: (a) :func:`predicated_on_card`; (b)
     :func:`captured_loop` on ``cuda``, ``cuda32`` and ``torchc``, the
     launch counts set to 0 just before and read just after, every tier's
-    algos equal; (c) the replay times beside phase 8's eager step parts.
-    Returns the ``@captured`` kernel-table rows of B1 and B2 and the
+    algos equal; (c) the replay times beside phase 8's eager step parts;
+    (d) :func:`captured_device_spellings`, the ``torchc`` step captured
+    with each spelling of the card.  Returns the ``@captured`` kernel-table rows of B1 and B2 and the
     phase's record."""
     import torch.distributed as dist
 
@@ -3380,11 +3434,36 @@ def sync_free_main_path(kernels, dev, lib, empty_ms: float, smi: str,
         for tier in ("cuda", "cuda32", "torchc"):
             runs[tier] = captured_loop(prog, tier, dev, dist.group.WORLD,
                                        gloo, lats, lib)
+        t_spell = time.time()
+        spellings = captured_device_spellings(
+            prog, dev, dist.group.WORLD, lats[:N_DEVICE_REPLAYS])
+        spell_s = time.time() - t_spell
     finally:
         dist.destroy_process_group()
     for tier in ("cuda32", "torchc"):
         check(runs[tier]["algos"] == runs["cuda"]["algos"],
               f"{tier}: captured algos differ from cuda's")
+    base = spellings["None"]
+    check(base["algos"] == runs["torchc"]["eager_algos"][:N_DEVICE_REPLAYS],
+          "device=None: the replayed algos differ from (b)'s eager run")
+    for spelling, r in spellings.items():
+        check(r["device"] == str(dev), f"device={spelling}: the selector "
+              f"holds {r['device']}, its tensors are on {dev}")
+        check(r["host_syncs"] == 0 and r["max_abs_err"] == 0.0,
+              f"device={spelling}: {r['host_syncs']} host reads, max "
+              f"|y - x| {r['max_abs_err']}")
+        check(r["algos"] == base["algos"], f"device={spelling}: algos "
+              "differ from device=None's")
+        check(r["state"] == base["state"], f"device={spelling}: state "
+              "bytes differ from device=None's")
+    log(f"[captured device] torchc selectors built with device=" +
+        ", ".join(spellings) + f" all hold {dev}; each one's all_reduce "
+        f"captured over the 1-rank NCCL group with the latency a tensor "
+        f"on the card and replayed over the first {N_DEVICE_REPLAYS} "
+        f"latencies under sync-debug 'error': algos (default "
+        f"{base['algos'].count(0)}, tree {base['algos'].count(2)}) and "
+        f"state bytes equal to device=None's, which equal (b)'s eager "
+        f"run, 0 host reads, y == x ({spell_s:.1f} s); {smi}")
     empty_graph_ms = empty_in_graph_ms(lib)
     rows = []
     for tier, label, kname in (("cuda", "policy_kernel", "bpf_kernel"),
@@ -3461,6 +3540,10 @@ def sync_free_main_path(kernels, dev, lib, empty_ms: float, smi: str,
                                if k not in ("sel", "static", "algos",
                                             "eager_algos")}
                            for t, r in runs.items()},
+              "device_spellings": {k: {"device": r["device"],
+                                       "host_syncs": r["host_syncs"]}
+                                   for k, r in spellings.items()},
+              "device_spellings_s": spell_s,
               "switch_nodes": graphs.captures,
               "empty_in_graph_ms": empty_graph_ms}
     return rows, record

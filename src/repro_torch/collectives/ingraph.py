@@ -123,7 +123,9 @@ class InGraphSelector:
     def __init__(self, program: Program, *, tier: str = "cuda",
                  device=None):
         """``device`` is where ``tier="torchc"`` runs: the card when
-        None, the CPU with ``"cpu"``; the other tiers take none."""
+        None, ``"cuda"`` or ``"cuda:N"``, the CPU with ``"cpu"``, held in
+        the form its tensors report (:func:`resolve_device`); the other
+        tiers take none."""
         if tier not in TIERS:
             raise ValueError(f"unknown in-graph tier {tier!r}; "
                              f"use one of {', '.join(TIERS)}")

@@ -112,6 +112,10 @@ def captured_switch(index: torch.Tensor,
     _check(lib, lib.bpf_switch_begin(main.cuda_stream, index.data_ptr(),
                                      len(branches), bodies), "switch node")
     side = torch.cuda.Stream(device=index.device)
+    if side.cuda_stream == main.cuda_stream:
+        # torch hands out its pool's streams in turn, so a draw can be
+        # the capturing stream itself, which cannot begin a body capture
+        side = torch.cuda.Stream(device=index.device)
     for i, branch in enumerate(branches):
         _check(lib, lib.bpf_body_begin(side.cuda_stream, bodies[i]),
                f"body {i}: begin capture")

@@ -65,6 +65,22 @@ def require_cuda(what: str) -> torch.device:
 
 
 def resolve_device(device, what: str) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the card
-    (:func:`require_cuda`), so CPU callers pass ``device="cpu"``."""
-    return require_cuda(what) if device is None else torch.device(device)
+    """``device`` in the one form a tensor made there reports, so that
+    two spellings of one device compare equal.
+
+    ``None``, ``"cuda"`` and ``"cuda:<current>"`` all name the card,
+    ``cuda:N`` (:func:`require_cuda`: no card raises
+    :class:`DeviceError`, as does a CUDA index other than the current
+    device's); ``"cpu"`` and ``"cpu:0"`` are ``cpu``; any other device
+    (``"meta"``) passes through as given."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
+        card = require_cuda(what)
+        if dev.index is not None and dev.index != card.index:
+            raise DeviceError(
+                f"{what}: asked for {dev} but the current device is "
+                f"{card}; select it with torch.cuda.set_device first")
+        return card
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    return dev

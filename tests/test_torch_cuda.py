@@ -344,15 +344,24 @@ def _adaptive_program():
     return adaptive_ingraph.program
 
 
-@pytest.mark.parametrize("tier", ["cuda", "cuda32", "torchc"])
+@pytest.mark.parametrize("tier,device", [
+    pytest.param("cuda", None, id="cuda"),
+    pytest.param("cuda32", None, id="cuda32"),
+    pytest.param("torchc", None, id="torchc"),
+    pytest.param("torchc", "cuda", id="torchc-cuda"),
+    pytest.param("torchc", "cuda:0", id="torchc-cuda:0")])
 def test_captured_step_picks_the_branch_on_the_card(card, nccl_and_gloo,
-                                                    tier):
+                                                    tier, device):
     """sel.all_reduce captured once over a 1-rank NCCL group: its replays
-    make no host read and give the eager run's algos and state."""
+    make no host read and give the eager run's algos and state.  The
+    ``torchc`` selector is built with each spelling of the card (ROADMAP
+    C10); its latency is a card tensor, which reports ``cuda:N``."""
     from repro_torch.collectives.ingraph import CURSOR_KEY, InGraphSelector
     nccl, gloo = nccl_and_gloo
     lats = [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8
-    sel = InGraphSelector(_adaptive_program(), tier=tier)
+    kw = {} if device is None else {"device": device}
+    sel = InGraphSelector(_adaptive_program(), tier=tier, **kw)
+    assert sel.device == card
     x = torch.arange(1 << 16, dtype=torch.float32, device=card)
     lat = torch.zeros((), dtype=torch.int64, device=card)
     state, eager = sel.init_state(), []
@@ -385,6 +394,41 @@ def test_captured_step_picks_the_branch_on_the_card(card, nccl_and_gloo,
     assert torch.equal(y, x)
     for key in static:
         assert torch.equal(static[key], state[key]), key
+
+
+def test_a_switch_capture_when_the_stream_pool_comes_round(card,
+                                                           nccl_and_gloo):
+    """torch hands out its pool's streams in turn: with the capture on a
+    pool stream, the draw for the switch node's bodies lands on that
+    stream once per turn of the pool.  The capture still takes it, and
+    its replays pick the branch."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives.ingraph import InGraphSelector
+    nccl, _ = nccl_and_gloo
+    sel = InGraphSelector(_adaptive_program(), tier="cuda")
+    x = torch.arange(1 << 10, dtype=torch.float32, device=card)
+    lat = torch.full((), 5_000_000, dtype=torch.int64, device=card)
+    dist.all_reduce(x.clone(), group=nccl)      # NCCL's communicator, eagerly
+    torch.cuda.synchronize()
+    main = torch.cuda.Stream()
+    period = 1
+    while torch.cuda.Stream().cuda_stream != main.cuda_stream:
+        period += 1
+    for _ in range(period - 1):     # the next draw is the capture stream
+        torch.cuda.Stream()
+    static = sel.init_state()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=main):
+        y, algo, new = sel.all_reduce(x, "data", static, group=nccl,
+                                      latency_ns=lat)
+        for key in static:
+            static[key].copy_(new[key])
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
+    assert int(algo) == 2                           # tree: slow latency
 
 
 def test_a_capture_over_a_gloo_group_raises(card, nccl_and_gloo):

@@ -401,6 +401,72 @@ def test_the_capture_path_builds_the_eager_ctx(tier, monkeypatch):
             assert torch.equal(c_out[2][k], e_out[2][k]), (lat, k)
 
 
+CPU_SPELLINGS = ["cpu", "cpu:0", torch.device("cpu"), torch.device("cpu", 0)]
+CPU_IDS = ["cpu", "cpu:0", "device(cpu)", "device(cpu, 0)"]
+
+
+@pytest.mark.parametrize("device", CPU_SPELLINGS, ids=CPU_IDS)
+def test_a_captured_step_takes_every_spelling_of_its_device(device,
+                                                            monkeypatch):
+    """ROADMAP C10: a ``torchc`` selector built with any spelling of the
+    CPU holds the device its tensors report, so a captured step fed a
+    tensor made there decides.  Over the reference test's stream, the
+    captured ``_ctx_vec`` and ``decide`` give the eager run's ctx words,
+    decisions and state, byte for byte, and the same as the selector
+    built with ``"cpu"``."""
+    prog = _adaptive(port_core)
+    sel = InGraphSelector(prog, tier="torchc", device=device)
+    ref = InGraphSelector(prog, tier="torchc", device="cpu")
+    assert sel.device == ref.device == torch.empty(0, device=device).device
+    eager, captured, base = (sel.init_state(), sel.init_state(),
+                             ref.init_state())
+    for lat in [1_000] * 4 + [5_000_000] * 6 + [1_000] * 8:
+        fields = {"coll_type": 0, "msg_size": MiB, "n_ranks": 8,
+                  "comm_id": 0, "max_channels": 32,
+                  "dtype_bytes": torch.tensor(lat, device=device)}
+        e_vec = sel._ctx_vec(fields)
+        e_algo, e_ch, eager = sel.decide(eager, coll=0, msg_bytes=MiB, n=8,
+                                         latency_ns=fields["dtype_bytes"])
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "capturing", lambda: True)
+            c_vec = sel._ctx_vec(fields)
+            c_algo, c_ch, captured = sel.decide(
+                captured, coll=0, msg_bytes=MiB, n=8,
+                latency_ns=fields["dtype_bytes"])
+        b_algo, b_ch, base = ref.decide(base, coll=0, msg_bytes=MiB, n=8,
+                                        latency_ns=torch.tensor(lat))
+        assert c_vec.numpy().tobytes() == e_vec.numpy().tobytes(), lat
+        assert (int(c_algo), int(c_ch)) == (int(e_algo), int(e_ch)) \
+            == (int(b_algo), int(b_ch)), lat
+        for k in base:
+            assert captured[k].numpy().tobytes() \
+                == eager[k].numpy().tobytes() \
+                == base[k].numpy().tobytes(), (lat, k)
+    assert int(base["lat_map"][0, 1]) == 18
+
+
+def test_a_captured_step_refuses_a_tensor_on_another_device(monkeypatch):
+    """The compare stays strict: a tensor that really lies elsewhere
+    would be read once, at capture, so a captured step refuses it — a
+    meta tensor fed to a CPU step, a CPU tensor fed to a card step."""
+    from repro_torch import device as devmod
+    monkeypatch.setattr(graphs, "capturing", lambda: True)
+    sel = InGraphSelector(_adaptive(port_core), tier="torchc", device="cpu:0")
+    with pytest.raises(ValueError, match="on cpu, got one on meta"):
+        sel._ctx_vec({"dtype_bytes": torch.zeros((), dtype=torch.int64,
+                                                 device="meta")})
+    # a card selector, with the card faked: the refusal comes before
+    # anything is made on the device
+    monkeypatch.setattr(devmod, "have_cuda", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(graphs, "build", lambda: None)
+    for device in (None, "cuda", "cuda:0"):
+        sel = InGraphSelector(_adaptive(port_core), tier="torchc",
+                              device=device)
+        with pytest.raises(ValueError, match="on cuda:0, got one on cpu"):
+            sel._ctx_vec({"dtype_bytes": torch.tensor(7)})
+
+
 def test_a_capture_with_a_gloo_group_raises(one_rank_group, monkeypatch):
     """gloo's collectives run on the host, so a captured step over a gloo
     group is refused before it decides, with the backend named."""
