@@ -78,14 +78,17 @@ Phases (any failure exits non-zero and prints no result line):
    operations at 989 TFLOP/s), its plain version's time and one PyTorch
    call's (``F.rms_norm``, ``torch.bmm``, SDPA with the backend its
    dispatcher picks named), the grouped matmul's also beside the WMMA
-   kernel's on the same inputs; rows without keys exactly 0 at a
-   model's width.  Before the cells, the operand dtypes the reference
-   takes beyond one of float32 or bfloat16 (mixed, and float16): at the
-   test shapes each kernel within its output dtype's tolerance of its
-   plain version, with the launches each call made and the route its
-   plan names (RMSNorm a dtype code per operand; the grouped matmul and
-   attention widened to float32 for their float32 kernels).  Nothing in
-   the phase is caught;
+   kernel's on the same inputs; fused RMSNorm's residual stream
+   bit-exact, its route and grid, and it and ``F.rms_norm`` timed hot
+   (one input set) and L2-cold (input sets in turn that exceed the
+   L2), beside the smem route on one block a row (the kernel's earlier
+   design); rows without keys exactly 0 at a model's width.  Before the
+   cells, the operand dtypes the reference takes beyond one of float32
+   or bfloat16 (mixed, and float16): at the test shapes each kernel
+   within its output dtype's tolerance of its plain version, with the
+   launches each call made and the route its plan names (RMSNorm a
+   dtype code per operand; the grouped matmul and attention widened to
+   float32 for their float32 kernels).  Nothing in the phase is caught;
 11. host tiers and the observability plane — ``have_cc()``, the compiler
    it found and the tier ``auto`` resolves to; every shipped policy on
    ``jit``, ``native`` and ``auto`` identical to ``interp`` on phase 3's
@@ -979,6 +982,7 @@ def nccl_one_rank(device) -> dict:
 
 HBM_BYTES_PER_S = 3.35e12   # NVIDIA H100 SXM data sheet (700 W)
 BF16_OPS_PER_S = 989e12     # dense bf16, the same data sheet
+L2_BYTES = 50 * 10 ** 6     # the H100's L2, the same data sheet
 MODEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # The full-width cells are also held element by element to what a bf16
 # output can differ by when the kernel and its plain version compute in
@@ -1343,6 +1347,49 @@ def wmma_call(inp: dict):
     return call
 
 
+def l2_cold(calls: list):
+    """A call that runs ``calls`` in turn, one each time: calls over
+    input sets that together exceed the L2, so none is found there.
+    Each call's outputs live until its next turn, so a call that
+    allocates them writes where the others' did not just write."""
+    turn, outs = [0], [None] * len(calls)
+
+    def call():
+        i = turn[0] % len(calls)
+        turn[0] += 1
+        outs[i] = calls[i]()
+        return outs[i]
+    return call
+
+
+def earlier_rms_call(inp: dict, p: dict):
+    """Fused RMSNorm's smem route on one block a row, which is the
+    kernel's design before its vector route, on a cell's operands,
+    launched past ``rms_plan`` for a comparison within this run (its
+    launches are not the main path's)."""
+    import torch
+
+    from repro_torch.kernels._build import DTYPE_CODE
+    from repro_torch.kernels.rmsnorm import kernel as rms
+
+    x = inp["x"].reshape(-1, p["D"])
+    r = inp["residual"].reshape(-1, p["D"]) if p["residual"] else None
+    scale = inp["scale"].float()
+    y = torch.empty_like(x)
+    res = torch.empty_like(x) if r is not None else None
+    code = DTYPE_CODE[x.dtype]
+
+    def call():
+        rms.KERNEL.launch(
+            "rmsnorm_launch", x.data_ptr(),
+            r.data_ptr() if r is not None else None, scale.data_ptr(),
+            y.data_ptr(), res.data_ptr() if res is not None else None,
+            p["T"], p["D"], 1e-6, rms.RMS_ROUTES["smem"], 8, 1, p["T"],
+            code, code)
+        return y, (res if res is not None else x)
+    return call
+
+
 def window_mask(p: dict, dev):
     """The (S, T) boolean mask of _attn_kernel: queries at the end."""
     import torch
@@ -1381,10 +1428,9 @@ def library_call(kind: str, ins: list, p: dict):
             r = ins[2]
             return (lambda: F.rms_norm(x + r, (p["D"],), scale, 1e-6)), \
                 "F.rms_norm(x + r)"
-        # one of the kernel's two outputs: without a residual the kernel
-        # still writes res (= x), F.rms_norm only y
+        # without a residual the stream is x itself: y is all there is
         return (lambda: F.rms_norm(x, (p["D"],), scale, 1e-6)), \
-            "F.rms_norm (writes y, not res)"
+            "F.rms_norm (the same function: res is x)"
     if kind == "grouped_matmul":
         return (lambda: torch.bmm(ins[0], ins[1])), "torch.bmm"
     from torch.nn.attention import SDPBackend
@@ -1434,10 +1480,16 @@ def attention_pairs(p: dict) -> int:
 def model_bound(kind: str, p: dict, ins: list, out) -> dict:
     """The least time the card could take: the kernel's inputs read
     once and outputs written once at the HBM rate, against its
-    operations at the dense bf16 rate; the larger bounds it."""
+    operations at the dense bf16 rate; the larger bounds it.  An output
+    that shares storage with an input (fused RMSNorm's residual stream
+    without a residual, which is x) moves no byte of its own."""
     outs = out if isinstance(out, tuple) else (out,)
-    nbytes = sum(t.numel() * t.element_size() for t in list(ins)
-                 + list(outs))
+    storages, nbytes = set(), 0
+    for t in list(ins) + list(outs):
+        key = t.untyped_storage().data_ptr()
+        if key not in storages:
+            storages.add(key)
+            nbytes += t.numel() * t.element_size()
     if kind == "fused_rmsnorm":
         ops = p["T"] * p["D"] * (5 if p["residual"] else 4)
     elif kind == "grouped_matmul":
@@ -1519,6 +1571,7 @@ def model_main_path(dev, lib) -> tuple:
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.grouped_matmul import kernel as gmm
+    from repro_torch.kernels.rmsnorm import kernel as rms
 
     kernels = model_kernels()
     rows, cells = [], []
@@ -1543,6 +1596,14 @@ def model_main_path(dev, lib) -> tuple:
             check(plan["route"] == "wgmma", f"{kind} [{cell}]: route "
                   f"{plan['route']} ({plan['why']}), the design states "
                   "wgmma")
+        else:
+            plan = rms.rms_plan(
+                p["T"], p["D"], torch.bfloat16,
+                torch.bfloat16 if p["residual"] else None,
+                [t.data_ptr() for n, t in inp.items() if n != "scale"])
+            check(plan["route"] == "vector", f"{kind} [{cell}]: route "
+                  f"{plan['route']} ({plan['why']}), the design states "
+                  "vector")
         want = plan.get("launches", 1)
         check(counts[kind] == want and sum(counts.values()) == want,
               f"{kind} [{cell}]: launches {counts} on one op call, the "
@@ -1551,6 +1612,10 @@ def model_main_path(dev, lib) -> tuple:
         err = kernel_matches_plain(f"{kind} [{cell}]", "bfloat16", out,
                                    plain_out)
         steps = within_bf16_steps(f"{kind} [{cell}]", out, plain_out)
+        if kind == "fused_rmsnorm":
+            check(torch.equal(out[1], plain_out[1]), f"{kind} [{cell}]: "
+                  "the residual stream is not bit-exact with the plain "
+                  "version's")
         del plain_out
         launch, ins = kernel_call(kind, inp, p)
         ms, reps, windows = timed_ms(lib, launch)
@@ -1561,6 +1626,32 @@ def model_main_path(dev, lib) -> tuple:
         check(lib_err < 0.1, f"{kind} [{cell}]: the library call "
               f"{lib_name} computes another function (err {lib_err})")
         lib_ms, _, lib_windows = timed_ms(lib, lib_call)
+        # fused RMSNorm's cells fit the L2 in part (50 MB against 34-168
+        # MB a call), so a call repeated on one input set reads some of
+        # it from there (hot, as the other cells and earlier runs are
+        # timed); it and the library call are also timed L2-cold, taking
+        # turns over input sets that together exceed the L2
+        cold_ms = lib_cold_ms = earlier_ms = None
+        if kind == "fused_rmsnorm":
+            sets = [inp] + [cell_inputs(kind, p, seed=1000 + i + 100 * j,
+                                        dev=dev)
+                            for j in range(1, 1 + -(-L2_BYTES // model_bound(
+                                kind, p, ins, out)["bytes"]))]
+            cold_ms = timed_ms(lib, l2_cold(
+                [launch] + [kernel_call(kind, q, p)[0] for q in sets[1:]]))[0]
+            lib_cold_ms = timed_ms(lib, l2_cold(
+                [lib_call] + [library_call(kind, kernel_call(kind, q, p)[1],
+                                           p)[0] for q in sets[1:]]))[0]
+            del sets
+            earlier = earlier_rms_call(inp, p)
+            got = earlier()
+            check(torch.equal(got[1], out[1].reshape(got[1].shape))
+                  and torch.allclose(got[0].float(), k_out.float(),
+                                     rtol=2e-2, atol=2e-2),
+                  f"{kind} [{cell}]: the smem route on a block a row "
+                  "disagrees with the main path's kernel")
+            earlier_ms = timed_ms(lib, earlier)[0]
+            del got, earlier
         gqa_ms, gqa_name, gqa_err = None, None, None
         if kind == "flash_attention" and p["H"] > p["KV"]:
             gqa_call, gqa_name = library_gqa_call(ins, p)
@@ -1593,7 +1684,9 @@ def model_main_path(dev, lib) -> tuple:
                       "library_waits_for_device": lib_windows == 0,
                       "library_err": lib_err, "library_gqa": gqa_name,
                       "library_gqa_ms": gqa_ms, "library_gqa_err": gqa_err,
-                      "wmma_ms": wmma_ms, **bound})
+                      "wmma_ms": wmma_ms, "ms_l2_cold": cold_ms,
+                      "library_ms_l2_cold": lib_cold_ms,
+                      "earlier_design_ms": earlier_ms, **bound})
         if kind == "flash_attention":
             how = (f" (tiles {plan['rows_per_block']} rows x "
                    f"{plan['keys_per_tile']} keys, d padded to "
@@ -1604,7 +1697,14 @@ def model_main_path(dev, lib) -> tuple:
                    f"{plan['tiles']} tiles on {plan['blocks']} blocks, "
                    f"{plan['waves']:.2f} waves)")
         else:
-            how = ""
+            how = (f" (route {plan['route']}, {plan['warps']} warps x "
+                   f"{plan['nv']} units of {plan['unit']} a row, "
+                   f"{plan['rows_per_block']} rows a block of "
+                   f"{plan['threads']} threads, grid {plan['blocks']} blocks "
+                   + ("(persistent)" if plan["persistent"]
+                      else "(one a row group)") + f" for {p['T']} rows"
+                   + ("" if plan["writes_res"] else "; res is x, not written")
+                   + ")")
         log(f"[model] {kind} [{cell}] {p}: launches {counts[kind]}" + how
             + f", max abs err {err:.3g} against the plain version (plain "
             f"rms {steps['rms']:.4g}, limit there "
@@ -1619,7 +1719,13 @@ def model_main_path(dev, lib) -> tuple:
                + (f" (PERF.md, before the wgmma route: "
                   f"{WMMA_RECORDED_MS[cell]} ms)"
                   if cell in WMMA_RECORDED_MS else "")
-               if wmma_ms else ""))
+               if wmma_ms else "")
+            + (f"; kernel / library {ms / lib_ms:.3f} hot; L2-cold: kernel "
+               f"{cold_ms:.4f} ms ({100 * bound['bound_ms'] / cold_ms:.1f}%),"
+               f" {lib_name} {lib_cold_ms:.4f} ms, kernel / library "
+               f"{cold_ms / lib_cold_ms:.3f}; the smem route on a block a "
+               f"row (the earlier design) {earlier_ms:.4f} ms hot"
+               if cold_ms else ""))
         del inp, out, ins, launch, lib_call
         torch.cuda.empty_cache()
     return rows, cells
@@ -3250,35 +3356,43 @@ def captured_loop(prog, tier: str, dev, nccl, gloo, lats, lib) -> dict:
     torch.cuda.synchronize()
     decide_ms, decide_blocked_ms = replay_timing(lib, g2.replay)
 
-    # a profiled window: the decision kernel and the switch ran once per
-    # replay; the copies the profiler saw (a fixed number per replay plus
-    # the default body's clone of x) are reported: after the script's
-    # earlier profiler sessions it misses some inside the switch's
-    # bodies, whose runs the counters above hold
+    # a profiled window, checked by the device's own counts (ROADMAP
+    # C12: torch.profiler drops records of replays, whole replays on
+    # torchc): each replay ran one body, advanced the write cursor and
+    # counted one decision in lat_map.  The trace gives the times; its
+    # record counts are printed, not checked
     window = lats[:N_TRACE]
-    start = int(static[CURSOR_KEY].cpu().numpy().view("<u4")[0]) % len(lats)
+
+    def device_counts() -> dict:
+        torch.cuda.synchronize()
+        lat_map = static["lat_map"].cpu()
+        return {"bodies": ran.cpu().tolist(),
+                "cursor": int(static[CURSOR_KEY].cpu().numpy().view(
+                    "<u4")[0]),
+                "decisions": int(pairs_to_words(lat_map)[0, 1])
+                if sel.word_width == 32 else int(lat_map[0, 1])}
 
     def run():
         for v in window:
             lat.fill_(v)
             replay()
+    before = device_counts()
     trace = device_trace(run, n=len(window))
+    after = device_counts()
     written = log.cpu().tolist()
-    defaults = [written[(start + i) % len(lats)]
-                for i in range(len(window))].count(0)
+    algos = [written[(before["cursor"] + i) % len(lats)]
+             for i in range(len(window))]
     kname = {"cuda": "bpf_kernel", "cuda32": "bpf_kernel32"}.get(tier)
-    kernel_events = trace["by_name"].get(kname, {}).get("count", 0) \
-        if kname else 0
-    switch_events = sum(v["count"] for n, v in trace["by_name"].items()
-                        if n.startswith("bpf_switch_set"))
-    copies = len(trace["memcpy_us"])
-    nccl_events = sum(v["count"] for n, v in trace["by_name"].items()
-                      if "nccl" in n.lower())
-    if kname:
-        check(kernel_events == len(window), f"{tier}: {kernel_events} "
-              f"{kname} launches in {len(window)} replays")
-    check(switch_events == len(window), f"{tier}: {switch_events} switch "
-          f"settings in {len(window)} replays")
+    seen = {"kernel": trace["by_name"].get(kname, {}).get("count", 0)
+            if kname else None,
+            "switch": sum(v["count"] for n, v in trace["by_name"].items()
+                          if n.startswith("bpf_switch_set")),
+            "copies": len(trace["memcpy_us"]),
+            "nccl": sum(v["count"] for n, v in trace["by_name"].items()
+                        if "nccl" in n.lower())}
+    failed, counted = window_failures(before, after, algos, seen)
+    check(not failed, f"{tier}: the profiled window of {len(window)} "
+          "replays: " + "; ".join(failed))
     scratch = sel.init_state()
     try:
         with torch.cuda.graph(torch.cuda.CUDAGraph()):
@@ -3300,11 +3414,47 @@ def captured_loop(prog, tier: str, dev, nccl, gloo, lats, lib) -> dict:
             "decide_only": {"host_p50_us": pct(decide_ns, 50) / 1e3,
                             "device_us": decide_ms * 1e3,
                             "behind_spin_host_ms": decide_blocked_ms},
-            "window": {"replays": len(window), "default": defaults,
-                       "kernel": kernel_events, "switch": switch_events,
-                       "copies": copies, "nccl": nccl_events},
+            "window": {"replays": len(window),
+                       "default": algos.count(0), "counted": counted,
+                       "before": before, "after": after, "seen": seen},
             "bodies": bodies,
             "gloo_refused": refused, "sel": sel, "static": static}
+
+
+def window_failures(before: dict, after: dict, algos: list,
+                    seen: dict) -> tuple:
+    """Phase 15 (b)'s check of a profiled window of ``len(algos)``
+    replays, by the device's counts read before and after it
+    (``bodies``: each branch body's run counter; ``cursor``: the write
+    cursor, a uint32 that wraps; ``decisions``: ``lat_map``'s decision
+    count).  Each replay runs exactly one body, the one of its algo,
+    advances the cursor and counts one decision, so each count moves by
+    the window: a switch that ran no body or two, or a replay that did
+    not run, fails.  ``seen`` (the trace's record counts: policy kernel,
+    switch setters, copies, NCCL kernels) is printed, never checked:
+    ``torch.profiler`` drops records of replays (ROADMAP C12).  The
+    failed checks, and a line for the log."""
+    n = len(algos)
+    ran = [a - b for a, b in zip(after["bodies"], before["bodies"])]
+    want = [algos.count(i) for i in range(len(ran))]
+    cursor = (after["cursor"] - before["cursor"]) % (1 << 32)
+    decisions = after["decisions"] - before["decisions"]
+    failed = []
+    if sum(ran) != n:
+        failed.append(f"the bodies ran {sum(ran)} times in {n} replays")
+    if ran != want:
+        failed.append(f"the bodies ran {ran} times, the window's algos "
+                      f"say {want}")
+    if cursor != n:
+        failed.append(f"the write cursor advanced by {cursor} in {n} "
+                      "replays")
+    if decisions != n:
+        failed.append(f"lat_map counted {decisions} decisions in {n} "
+                      "replays")
+    line = (f"bodies +{ran} for algos {want}, cursor +{cursor}, lat_map "
+            f"+{decisions}; seen in trace: " + ", ".join(
+                f"{k} {v}" for k, v in seen.items() if v is not None))
+    return failed, line
 
 
 def captured_device_spellings(prog, dev, nccl, lats) -> dict:
@@ -3506,11 +3656,9 @@ def sync_free_main_path(kernels, dev, lib, empty_ms: float, smi: str,
         f"{graphs.captures}; branch bodies run (default, ring, tree, "
         f"bidir) per the device counters, equal to the algos: " + "; ".join(
             f"{t} {r['bodies']}" for t, r in runs.items())
-        + f"; per tier (window of {N_TRACE} replays: kernel / switch / "
-        f"copies seen / default replays / nccl events): " + "; ".join(
-            f"{t} {r['window']['kernel']} / {r['window']['switch']} / "
-            f"{r['window']['copies']} / {r['window']['default']} / "
-            f"{r['window']['nccl']}" for t, r in runs.items()))
+        + f"; per tier, a profiled window of {N_TRACE} replays held by "
+        f"device counts: " + "; ".join(
+            f"{t} {r['window']['counted']}" for t, r in runs.items()))
     log("[captured time] per replay: host p50 / p99 us (p50 under "
         "sync-debug), device us, busy share of the window; eager step "
         "(all_reduce with its host read) us: " + "; ".join(

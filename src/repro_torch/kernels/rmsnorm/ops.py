@@ -5,6 +5,14 @@ The port of ``repro/kernels/rmsnorm/ops.py``.  Backends:
 :class:`~repro_torch.device.DeviceError` without a CUDA device or on
 tensors elsewhere; ``"torch"`` the plain version on the inputs' device;
 ``"ref"`` the oracle.
+
+Without a residual the residual stream is ``T(f32(x))``, which is x bit
+for bit: the ``"cuda"`` backend returns it as x itself (the same
+storage, reshaped; a copy only where x was not contiguous), the plain
+version as a cast of x (x itself for float32), as the reference
+computes it.  So the stream may alias x on every backend: a caller
+must not write to it in place (``res += h``), or x changes too; add
+out of place (``res = res + h``).
 """
 
 from __future__ import annotations

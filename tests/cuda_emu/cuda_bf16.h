@@ -20,6 +20,8 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     return {(uint16_t)(b >> 16)};
 }
 
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.x; }
+
 struct __nv_bfloat162 {
     __nv_bfloat16 x, y;
 };

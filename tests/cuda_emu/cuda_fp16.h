@@ -19,3 +19,5 @@ inline __half __float2half_rn(float f) {
     std::memcpy(&v.x, &h, 2);
     return v;
 }
+inline unsigned short __half_as_ushort(__half v) { return v.x; }
+inline __half __ushort_as_half(unsigned short u) { return {u}; }

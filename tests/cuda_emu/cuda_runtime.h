@@ -36,12 +36,18 @@
 struct alignas(16) uint4 {
     unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+    return {x, y, z, w};
+}
 
 struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx, gridDim;
+inline thread_local dim3 threadIdx, blockIdx, gridDim, blockDim;
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
@@ -59,6 +65,11 @@ inline float __uint_as_float(unsigned u) {
     float f;
     std::memcpy(&f, &u, 4);
     return f;
+}
+inline unsigned __float_as_uint(float f) {
+    unsigned u;
+    std::memcpy(&u, &f, 4);
+    return u;
 }
 
 namespace emu {
@@ -87,6 +98,7 @@ inline void launch(dim3 grid, int threads, const std::function<void()> &fn) {
                         threadIdx = dim3(t);
                         blockIdx = dim3(x, y, z);
                         gridDim = grid;
+                        blockDim = dim3(threads);
                         fn();
                     });
                 for (auto &t : ts) t.join();

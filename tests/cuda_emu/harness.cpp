@@ -1,7 +1,8 @@
 // Runs one model kernel, or one PTX twin, under the CPU emulation
 // (cuda_runtime.h and ptx.h here).
 //
-//   harness rmsnorm f32|bf16|f16 DIR T D RESIDUAL EPS RDTYPE
+//   harness rmsnorm f32|bf16|f16 DIR T D RESIDUAL EPS RDTYPE ROUTE WARPS NV
+//           BLOCKS OFFSET
 //   harness gmm     f32|bf16 DIR E C D F ROUTE BLOCKS
 //   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE GROUP NSPLIT VEC
 //   harness ptx     mma|ldmatrix|ldmatrix_trans|cvt|ex2|cp_async DIR
@@ -10,7 +11,10 @@
 // Inputs are raw arrays in DIR (x, r, scale, w, q, k, v, a, b, c, m,
 // rows, smem, desc, args, g .bin), outputs are written there (y, res,
 // out, d, regs, log .bin).  rmsnorm reads x in its dtype and r in
-// RDTYPE (f32|bf16|f16) and writes y and res in x's dtype.  gmm runs the kernel of ROUTE (kernel.py
+// RDTYPE (f32|bf16|f16) and writes y, and with RESIDUAL res, in x's
+// dtype; it runs the kernel of ROUTE (kernel.py RMS_ROUTES: 0 vector,
+// 1 smem) with WARPS warps a row and NV units a thread on
+// BLOCKS blocks, x, r, y and res OFFSET elements into their buffers.  gmm runs the kernel of ROUTE (kernel.py
 // GMM_ROUTES: 0 the CUDA-core kernel, 1 WMMA, 2 wgmma fed by TMA, as a
 // persistent grid of BLOCKS blocks).
 // The kernels' sources are the kernel halves of kernels/*/csrc/*.cu,
@@ -58,17 +62,46 @@ template <class T> void wr(const char *name, const std::vector<T> &v) {
 template <class T, class R> int run_rms(char **a) {
     const int T_ = atoi(a[4]), D = atoi(a[5]), res = atoi(a[6]);
     const float eps = (float)atof(a[7]);
+    const int route = atoi(a[9]), warps = atoi(a[10]), nv = atoi(a[11]);
+    const int blocks = atoi(a[12]), off = atoi(a[13]);
     const size_t n = (size_t)T_ * D;
+    // x, r, y and res start `off` elements into their buffers
     auto x = rd<T>("x.bin", n);
     auto r = res ? rd<R>("r.bin", n) : std::vector<R>();
     auto s = rd<float>("scale.bin", D);
-    std::vector<T> y(n), rs(n);
-    emu::launch(dim3(T_), 256, [&] {
-        rms::rmsnorm_kernel<T, R>(x.data(), res ? r.data() : nullptr,
-                                  s.data(), y.data(), rs.data(), D, eps);
-    });
-    wr("y.bin", y);
-    wr("res.bin", rs);
+    std::vector<T> xb(n + off), yb(n + off), rsb(res ? n + off : 0);
+    std::vector<R> rb(res ? n + off : 0);
+    std::copy(x.begin(), x.end(), xb.begin() + off);
+    if (res) std::copy(r.begin(), r.end(), rb.begin() + off);
+    const T *xp = xb.data() + off;
+    const R *rp = res ? rb.data() + off : nullptr;
+    T *yp = yb.data() + off, *rsp = res ? rsb.data() + off : nullptr;
+    // the launcher's kernel for the route (rmsnorm_launch)
+    const int nt = 32 * warps, threads = nt * (nt < 256 ? 256 / nt : 1);
+    auto reg = [&](auto k) {
+        constexpr int NV = decltype(k)::value;
+        emu::launch(dim3(blocks), threads, [&] {
+            rms::rmsnorm_reg_kernel<T, R, NV>(xp, rp, s.data(), yp, rsp, T_,
+                                              D, eps, warps);
+        });
+    };
+    if (route == 1) {
+        emu::launch(dim3(blocks), 256, [&] {
+            rms::rmsnorm_smem_kernel<T, R>(xp, rp, s.data(), yp, rsp, T_, D,
+                                           eps);
+        });
+    } else if (route == 0 && nv == 1) {
+        reg(std::integral_constant<int, 1>());
+    } else if (route == 0 && nv == 2) {
+        reg(std::integral_constant<int, 2>());
+    } else if (route == 0 && nv == 4) {
+        reg(std::integral_constant<int, 4>());
+    } else {
+        return 4;
+    }
+    wr("y.bin", std::vector<T>(yb.begin() + off, yb.end()));
+    // res.bin only where the kernel wrote a residual stream
+    if (res) wr("res.bin", std::vector<T>(rsb.begin() + off, rsb.end()));
     return 0;
 }
 

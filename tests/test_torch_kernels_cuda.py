@@ -18,6 +18,7 @@ import torch
 import torch_samples as samples
 from repro_torch import kernels as K
 from repro_torch.device import DeviceError
+from repro_torch.kernels._build import DTYPE_CODE
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.grouped_matmul import kernel as gmm
 from repro_torch.kernels.rmsnorm import kernel as rms
@@ -68,7 +69,8 @@ def _launched(kernel, fn, n: int = 1):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,D,bt", [(256, 512, 128), (128, 1024, 64),
                                     (64, 256, 64), (8, 5120, 8),
-                                    (8, 16384, 8), (4, 1000, 4)])
+                                    (8, 16384, 8), (4, 1000, 4),
+                                    (64, 2048, 64), (8, 1001, 8)])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(card, T, D, bt, dtype, with_residual):
     a = samples.kernel_inputs("rmsnorm", 0, T=T, D=D,
@@ -79,7 +81,67 @@ def test_rmsnorm_kernel_matches_plain(card, T, D, bt, dtype, with_residual):
                        lambda: rms.fused_rmsnorm_cuda(x, s, r, bt=bt))
     py, pres = rms.fused_rmsnorm_plain(x, s, r, bt=bt)
     _close(y, py, dtype)
-    # the residual stream is one cast of the same f32 sum
+    if with_residual:
+        # the residual stream is one cast of the same f32 sum
+        assert torch.equal(res, pres)
+    else:
+        # T(f32(x)) is x: the stream is x itself, uncopied
+        assert res is x and res.data_ptr() == x.data_ptr()
+
+
+def _rms_views(card, T, D, dtype, with_residual, offset):
+    """x (and the residual) as contiguous views ``offset`` elements into
+    their buffers, with scale on the card."""
+    a = samples.kernel_inputs("rmsnorm", 2, T=T, D=D,
+                              with_residual=with_residual)
+
+    def view(t):
+        buf = torch.empty(t.size + offset, dtype=DTYPES[dtype], device=card)
+        return buf[offset:].view(T, D).copy_(_on(t, dtype, card))
+    return (view(a["x"]), torch.from_numpy(a["scale"]).to(card),
+            view(a["residual"]) if with_residual else None)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 2048), ("float32", 512),
+                                     ("bfloat16", 5120)])
+def test_rmsnorm_misaligned_base(card, dtype, D, with_residual):
+    """A view one element (2 bytes in bf16) off 16-byte alignment takes
+    the route rms_plan gives its pointers (smem), one launch, and the
+    plain version's result."""
+    T = 16
+    x, s, r = _rms_views(card, T, D, dtype, with_residual, offset=1)
+    plan = rms.rms_plan(T, D, x.dtype, r.dtype if r is not None else None,
+                        [x.data_ptr()])
+    assert plan["route"] == "smem"
+    y, res = _launched(rms.KERNEL, lambda: rms.fused_rmsnorm_cuda(x, s, r,
+                                                                  bt=T))
+    py, pres = rms.fused_rmsnorm_plain(x, s, r, bt=T)
+    _close(y, py, dtype)
+    assert torch.equal(res, pres) and (r is not None or res is x)
+
+
+@pytest.mark.parametrize("dtype,D,warps,nv", [
+    ("bfloat16", 2048, 2, 4), ("bfloat16", 2048, 3, 4),
+    ("bfloat16", 2048, 4, 2), ("bfloat16", 2048, 8, 1),
+    ("bfloat16", 5120, 5, 4), ("bfloat16", 5120, 10, 2),
+    ("bfloat16", 5120, 16, 2),
+    ("float32", 1000, 4, 2)])
+def test_rmsnorm_register_shapes(card, dtype, D, warps, nv):
+    """Each register shape the vector route's launcher takes, on a
+    persistent grid of 8 blocks (fewer than the rows): the plain
+    version's result."""
+    T = 300
+    x, s, r = _rms_views(card, T, D, dtype, True, offset=0)
+    assert rms.rms_plan(T, D, x.dtype, r.dtype)["route"] == "vector"
+    y, res = torch.empty_like(x), torch.empty_like(x)
+    code = DTYPE_CODE[x.dtype]
+    _launched(rms.KERNEL, lambda: rms.KERNEL.launch(
+        "rmsnorm_launch", x.data_ptr(), r.data_ptr(), s.data_ptr(),
+        y.data_ptr(), res.data_ptr(), T, D, 1e-6, rms.RMS_ROUTES["vector"],
+        warps, nv, 8, code, code))
+    py, pres = rms.fused_rmsnorm_plain(x, s, r, bt=T)
+    _close(y, py, dtype)
     assert torch.equal(res, pres)
 
 

@@ -24,6 +24,7 @@ the speed) is ``tests/test_torch_kernels_cuda.py``'s and
 ``chip_smoke.py``'s.
 """
 
+import ctypes
 import re
 import shutil
 import subprocess
@@ -36,6 +37,7 @@ import torch
 import torch_samples as samples
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.grouped_matmul import kernel as gmm
+from repro_torch.kernels._build import DTYPE_CODE
 from repro_torch.kernels.rmsnorm import kernel as rms
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -91,6 +93,7 @@ def harness(tmp_path_factory):
                             *map(str, args)], capture_output=True,
                            text=True, timeout=300)
         assert r.returncode == 0, r.stderr
+        run.last = work
         res = {}
         for name, shape in outputs.items():
             raw = np.fromfile(work / f"{name}.bin",
@@ -115,23 +118,56 @@ def _close(got, want, dtype: str) -> None:
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,D,with_residual", [
-    (16, 512, False), (16, 512, True), (4, 1000, True), (2, 5120, True)])
-def test_rmsnorm_kernel_code(harness, T, D, with_residual, dtype):
-    a = samples.kernel_inputs("rmsnorm", 0, T=T, D=D,
+def _rms(harness, x, s, r, plan, offset=0) -> dict:
+    """The launcher's kernel for ``plan`` (rms_plan's) under the
+    emulation, x, r, y and res ``offset`` elements into their buffers;
+    y, and res where the kernel writes one."""
+    T, D = x.shape
+    rdt = TAG[(r if r is not None else x).dtype]
+    ins = {"x": x, "scale": s.float(), **({"r": r} if r is not None else {})}
+    outs = {"y": (T, D), **({"res": (T, D)} if r is not None else {})}
+    got = harness("rmsnorm", x.dtype, ins,
+                  (T, D, int(r is not None), 1e-6, rdt,
+                   rms.RMS_ROUTES[plan["route"]], plan["warps"], plan["nv"],
+                   plan["blocks"], offset), outs)
+    # without a residual the kernel writes no stream (the wrapper
+    # returns x)
+    assert (harness.last / "res.bin").exists() == (r is not None)
+    return got
+
+
+def _rms_inputs(seed, T, D, dtype, with_residual, rdtype=None):
+    a = samples.kernel_inputs("rmsnorm", seed, T=T, D=D,
                               with_residual=with_residual)
     x = torch.from_numpy(a["x"]).to(DTYPES[dtype])
-    s = torch.from_numpy(a["scale"])
-    r = torch.from_numpy(a["residual"]).to(DTYPES[dtype]) \
+    r = torch.from_numpy(a["residual"]).to(DTYPES[rdtype or dtype]) \
         if with_residual else None
-    ins = {"x": x, "scale": s, **({"r": r} if with_residual else {})}
-    got = harness("rmsnorm", x.dtype, ins,
-                  (T, D, int(with_residual), 1e-6, TAG[x.dtype]),
-                  {"y": (T, D), "res": (T, D)})
-    y, res = rms.fused_rmsnorm_plain(x, s, r, bt=T)
-    _close(got["y"], y, dtype)
-    assert torch.equal(got["res"], res)
+    return x, torch.from_numpy(a["scale"]), r
+
+
+def _rms_check(got, x, s, r) -> None:
+    """y within the reference's tolerance of the plain version, the
+    residual stream bit-exact."""
+    y, res = rms.fused_rmsnorm_plain(x, s, r, bt=x.shape[0])
+    _close(got["y"], y, {v: k for k, v in DTYPES.items()}[x.dtype])
+    if r is not None:
+        assert torch.equal(got["res"], res)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,D,with_residual", [
+    (16, 512, False), (16, 512, True), (4, 1000, True), (2, 5120, True),
+    (4, 1001, False), (4, 1001, True), (4, 2048, False), (4, 2048, True)])
+def test_rmsnorm_kernel_code(harness, T, D, with_residual, dtype):
+    """The route rms_plan picks (vector where D is a multiple of 16
+    bytes of x and fits the registers, smem for D = 1001) against the
+    plain version."""
+    x, s, r = _rms_inputs(0, T, D, dtype, with_residual)
+    plan = rms.rms_plan(T, D, x.dtype, r.dtype if r is not None else None)
+    unit = 16 // x.element_size()
+    held = 32 * rms.MAX_WARPS * max(rms.VECTOR_NVS) * unit
+    assert plan["route"] == ("smem" if D % unit or D > held else "vector")
+    _rms_check(_rms(harness, x, s, r, plan), x, s, r)
 
 
 @pytest.mark.parametrize("xdt,rdt,sdt", [
@@ -141,18 +177,184 @@ def test_rmsnorm_kernel_code(harness, T, D, with_residual, dtype):
 def test_rmsnorm_kernel_code_mixed_dtypes(harness, xdt, rdt, sdt):
     """x, the residual and scale each in their own dtype (ROADMAP C7):
     the kernel reads each in its dtype and writes both outputs in x's,
-    as the plain version does."""
+    as the plain version does (16-byte units of x: 4 f32 values beside
+    8 bytes of a bf16 residual, 8 bf16 values beside 32 bytes of an f32
+    one)."""
     T, D = 4, 1000
-    a = samples.kernel_inputs("rmsnorm", 3, T=T, D=D, with_residual=True)
-    x = torch.from_numpy(a["x"]).to(DTYPES[xdt])
-    r = torch.from_numpy(a["residual"]).to(DTYPES[rdt])
-    s = torch.from_numpy(a["scale"]).to(DTYPES[sdt])
-    got = harness("rmsnorm", x.dtype, {"x": x, "r": r, "scale": s.float()},
-                  (T, D, 1, 1e-6, TAG[r.dtype]),
-                  {"y": (T, D), "res": (T, D)})
-    y, res = rms.fused_rmsnorm_plain(x, s, r, bt=T)
-    _close(got["y"], y, xdt)
-    assert torch.equal(got["res"], res)
+    x, _, r = _rms_inputs(3, T, D, xdt, True, rdt)
+    s = torch.from_numpy(samples.kernel_inputs("rmsnorm", 3, T=T, D=D)[
+        "scale"]).to(DTYPES[sdt])
+    plan = rms.rms_plan(T, D, x.dtype, r.dtype)
+    assert plan["route"] == "vector"
+    _rms_check(_rms(harness, x, s, r, plan), x, s, r)
+
+
+# (dtype, D, warps, nv): every register shape of the vector route
+# (launched with that shape), and the smem route for a D that is not a
+# multiple of 16 bytes of x (rms_plan's shape)
+RMS_ROUTE_CASES = [
+    ("bfloat16", 2048, 2, 4), ("bfloat16", 2048, 3, 4),
+    ("bfloat16", 2048, 4, 2), ("bfloat16", 2048, 8, 1),
+    ("bfloat16", 640, 5, 2), ("bfloat16", 5120, 10, 2),
+    ("float32", 1000, 4, 2),
+    ("float16", 1000, None, None), ("bfloat16", 1001, None, None),
+    ("float32", 1001, None, None), ("bfloat16", 4097, None, None)]
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype,D,warps,nv", RMS_ROUTE_CASES)
+def test_rmsnorm_routes(harness, dtype, D, warps, nv, with_residual):
+    """Each route, and each register shape the launcher takes, on a
+    persistent grid of 2 blocks (fewer than the rows): every block walks
+    several rows, prefetching the next, and the warps' partial sums
+    alternate between their two sets."""
+    T = 20
+    x, s, r = _rms_inputs(5, T, D, dtype, with_residual)
+    plan = rms.rms_plan(T, D, x.dtype, r.dtype if r is not None else None,
+                        sms=1)
+    assert plan["route"] == ("vector" if D % (16 // x.element_size()) == 0
+                             else "smem")
+    if warps is not None:
+        plan = dict(plan, warps=warps, nv=nv,
+                    rows_per_block=max(1, rms.ROW_THREADS // (32 * warps)))
+    plan = dict(plan, blocks=2)
+    assert plan["blocks"] * plan["rows_per_block"] < T
+    _rms_check(_rms(harness, x, s, r, plan), x, s, r)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 2048), ("float32", 512),
+                                     ("bfloat16", 5120)])
+def test_rmsnorm_misaligned_base(harness, dtype, D, with_residual):
+    """Operands one element (2 bytes in bf16, 4 in f32) off 16-byte
+    alignment, as a view with a storage offset gives them: rms_plan
+    takes the smem route and the kernel reads and writes at the
+    offset."""
+    T = 6
+    x, s, r = _rms_inputs(6, T, D, dtype, with_residual)
+    esize = x.element_size()
+    plan = rms.rms_plan(T, D, x.dtype, r.dtype if r is not None else None,
+                        ptrs=[64 + esize, 64], sms=1)
+    assert plan["route"] == "smem"
+    assert "aligned" in plan["why"]
+    _rms_check(_rms(harness, x, s, r, plan, offset=1), x, s, r)
+
+
+def test_rmsnorm_plan_shapes():
+    """The register shape holds the row with the fewest idle slots, then
+    2 vectors a thread, then the fewest warps.  The grid: without a
+    residual (a bf16 row moves no more bytes than its f32 scale) the
+    blocks the card keeps resident, each walking rows; with one, a block
+    a row group."""
+    bf = torch.bfloat16
+    plan = rms.rms_plan(4096, 2048, bf, bf, sms=132)
+    assert (plan["route"], plan["unit"], plan["warps"], plan["nv"],
+            plan["rows_per_block"], plan["threads"], plan["resident"],
+            plan["persistent"], plan["blocks"], plan["launches"],
+            plan["writes_res"]) == (
+                "vector", 8, 4, 2, 2, 256, 528, False, 2048, 1, True)
+    plan = rms.rms_plan(4096, 2048, bf, sms=132)
+    assert (plan["persistent"], plan["blocks"], plan["writes_res"]) == (
+        True, 528, False)
+    plan = rms.rms_plan(4096, 5120, bf, bf, sms=132)
+    assert (plan["warps"], plan["nv"], plan["rows_per_block"],
+            plan["threads"], plan["resident"], plan["blocks"]) == (
+                10, 2, 1, 320, 396, 4096)
+    plan = rms.rms_plan(4096, 4096, bf, sms=132)
+    assert (plan["warps"], plan["nv"], plan["threads"], plan["persistent"],
+            plan["blocks"]) == (8, 2, 256, True, 528)
+    plan = rms.rms_plan(4096, 1001, bf, sms=132)
+    assert (plan["route"], plan["unit"], plan["threads"], plan["blocks"]) \
+        == ("smem", 1, 256, 1056)
+    assert "not a multiple of 8" in plan["why"]
+    assert not rms.rms_plan(4096, 2048, torch.float32)["persistent"]
+    assert rms.rms_plan(4, 2048, bf, sms=132)["blocks"] == 2   # 2 rows a block
+    assert rms.rms_plan(8, 16384, bf)["route"] == "vector"
+    assert rms.rms_plan(8, 32768, bf)["route"] == "smem"
+    assert rms.rms_plan(8, 16384, torch.float32)["route"] == "smem"
+    # every base 16-byte aligned, or the smem route
+    assert rms.rms_plan(8, 2048, bf, bf, ptrs=[0, 16, 32, 48])["route"] \
+        == "vector"
+    assert rms.rms_plan(8, 2048, bf, bf, ptrs=[0, 16, 34, 48])["route"] \
+        == "smem"
+    with pytest.raises(ValueError, match="shared memory"):
+        rms.rms_plan(8, 60000, torch.float32)
+
+
+@pytest.fixture
+def emulated_launch(harness, monkeypatch):
+    """``fused_rmsnorm_cuda`` on CPU tensors, its launch run by the
+    emulated kernel on the bytes at the pointers it passes (the wrapper's
+    checks, plan and outputs as on the card); the launches' arguments."""
+    codes = {v: k for k, v in DTYPE_CODE.items()}
+    calls = []
+
+    def grab(ptr, n, dt):
+        return torch.frombuffer(bytearray(ctypes.string_at(
+            ptr, n * dt.itemsize)), dtype=dt)
+
+    def launch(entry, x, r, s, y, res, T, D, eps, route, warps, nv, blocks,
+               code, rcode):
+        assert entry == "rmsnorm_launch"
+        xdt, rdt = codes[code], codes[rcode]
+        calls.append({"r": r, "res": res, "route": route, "warps": warps,
+                      "nv": nv, "blocks": blocks})
+        plan = {"route": {v: k for k, v in rms.RMS_ROUTES.items()}[route],
+                "warps": warps, "nv": nv, "blocks": blocks}
+        xt = grab(x, T * D, xdt).view(T, D)
+        rt = grab(r, T * D, rdt).view(T, D) if r else None
+        got = _rms(harness, xt, grab(s, D, torch.float32), rt, plan,
+                   offset=(x % 16) // xdt.itemsize)
+        for ptr, name in ((y, "y"), (res, "res")):
+            if ptr:
+                out = got[name].contiguous()
+                ctypes.memmove(ptr, out.data_ptr(), T * D * xdt.itemsize)
+
+    monkeypatch.setattr(rms, "on_card", lambda *a: None)
+    monkeypatch.setattr(rms.KERNEL, "launch", launch)
+    return calls
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 2048), ("float32", 1001)])
+def test_rmsnorm_wrapper_on_the_emulated_kernel(emulated_launch, dtype, D,
+                                                with_residual, offset):
+    """The wrapper end to end: its plan from the operands' pointers (a
+    view ``offset`` elements into its storage leaves the vector route),
+    one launch, y within tolerance of the plain version, and the
+    residual stream bit-exact; without a residual no stream pointer is
+    passed and the stream returned is x itself."""
+    T = 8
+    x, s, r = _rms_inputs(7, T, D, dtype, with_residual)
+    if offset:
+        x = torch.cat([x.flatten()[:offset], x.flatten()])[offset:].view(T, D)
+        if r is not None:
+            r = torch.cat([r.flatten()[:offset], r.flatten()])[
+                offset:].view(T, D)
+    y, res = rms.fused_rmsnorm_cuda(x, s, r, bt=T)
+    (call,) = emulated_launch
+    want = "vector" if D % 8 == 0 and not offset else "smem"
+    assert call["route"] == rms.RMS_ROUTES[want]
+    _rms_check({"y": y, "res": res}, x, s, r)
+    if r is None:
+        assert call["res"] is None and call["r"] is None
+        assert res is x and res.data_ptr() == x.data_ptr()
+    else:
+        assert res.data_ptr() != x.data_ptr()
+
+
+def test_rmsnorm_misaligned_scale_takes_the_smem_route(emulated_launch):
+    """A float32 scale view off 16-byte alignment is passed as it is
+    (no copy), so its base sends the call to the smem route."""
+    T, D = 8, 2048
+    x, s, r = _rms_inputs(8, T, D, "bfloat16", True)
+    s = torch.cat([s[:1], s])[1:]
+    assert s.data_ptr() % 16
+    y, res = rms.fused_rmsnorm_cuda(x, s, r, bt=T)
+    (call,) = emulated_launch
+    assert call["route"] == rms.RMS_ROUTES["smem"]
+    _rms_check({"y": y, "res": res}, x, s, r)
 
 
 def _gmm(harness, E, C, D, F, dtype, route=None, blocks=2):
