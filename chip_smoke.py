@@ -8,10 +8,17 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device — the card, and ``nvidia-smi``'s name and power limit;
 2. build — the CUDA policy kernel of every shipped policy, one ``nvcc``
-   per source, all in parallel;
+   per source, all in parallel, and beside them the same programs in the
+   earlier design (the memory frame, ``<<<1,1>>>``) as one library; per
+   program its frame routes and block, and per entry
+   ``cudaFuncGetAttributes``' local bytes, registers and shared bytes,
+   local bytes 0 on route ``regs`` checked;
 3. kernel against its plain version — for every shipped policy the
    kernel, the plain PyTorch version (on the card) and the interpreter
    agree bit for bit on seeded maps and ctx samples (ret, ctx, every map);
+   then every program's B1 timed on phase 3's state beside the earlier
+   design on the same state (both bit-exact there), and the empty launch
+   on one warp, the block of a program that scans a map;
 4. unsafe programs — the §5.2 suite is rejected at load, nothing built;
 5. main path — a ``CollectiveDispatcher(tier="cuda")`` with the §5.3
    closed loop (adapt_profiler -> pinned adapt_map -> adapt_tuner, plus
@@ -37,7 +44,9 @@ Phases (any failure exits non-zero and prints no result line):
    layout; the ``lru_hash`` policies are rejected for ``cuda32`` with the
    reference's message and nothing is built for them; the pair-form
    golden programs of ``tests/torch_samples.py`` run through the kernel
-   (built as bundles of programs) and equal the interpreter;
+   (built as bundles of programs) and equal the interpreter; every
+   pair-form program's B2 timed on phase 7's state beside the earlier
+   design;
 8. in-graph closed loop — a ``CollectiveDispatcher(tier="cuda")`` with
    ``bucket_tuner`` attached, its map warmed by decisions and
    ``bucket_profiler`` feeds; ``make_ingraph`` with ``tier="cuda32"``,
@@ -429,6 +438,8 @@ def timing_lib():
     lib.bpf_spin_launch.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
     lib.bpf_empty_launch.restype = ctypes.c_int
     lib.bpf_spin_launch.restype = ctypes.c_int
+    lib.bpf_empty_warp_launch.argtypes = [ctypes.c_void_p]
+    lib.bpf_empty_warp_launch.restype = ctypes.c_int
     return lib
 
 
@@ -472,6 +483,19 @@ def empty_device_ms(lib) -> float:
 
     def launch():
         check(lib.bpf_empty_launch(stream) == 0, "empty kernel launch")
+    return device_ms(lib, launch)
+
+
+def empty_warp_ms(lib) -> float:
+    """Device time of an empty launch on one warp, the block of a policy
+    kernel whose program scans a map."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(lib.bpf_empty_warp_launch(stream) == 0,
+              "empty kernel launch on one warp")
     return device_ms(lib, launch)
 
 
@@ -526,39 +550,112 @@ def bridge_breakdown(bridge, reps: int = 500) -> dict:
     return {k: pct(v, 50) / 1e3 for k, v in parts.items()}
 
 
-def kernel_timing(lib, kernel, ctx0, maps0, pairs: bool = False) -> dict:
+def kernel_timing(lib, kernel, ctx0, maps0, pairs: bool = False,
+                  earlier=None, plain_reps: int = 5) -> dict:
     """Device time of ``kernel`` (its pair form with ``pairs``) on clones
-    of main-path inputs ``ctx0`` / ``maps0``, its plain version's time on
-    the same inputs, and their disagreement."""
+    of inputs ``ctx0`` / ``maps0``, its plain version's time on the same
+    inputs, and their disagreement; with ``earlier`` (the same program
+    built in the earlier design) also that kernel's time and
+    disagreement on its own clones, timed right after."""
     import torch
 
     from repro_torch.core import torchc
 
-    launch = kernel.launch32 if pairs else kernel.launch
     plain = torchc.run32 if pairs else torchc.run
     words = pair_words if pairs else (lambda t: t.cpu().numpy())
-    # one decision each on identical inputs: kernel vs plain version
-    ctx, maps = ctx0.clone(), {m: t.clone() for m, t in maps0.items()}
-    ret = torch.zeros(2, dtype=torch.int32, device=ctx.device) if pairs \
-        else torch.zeros(1, dtype=torch.int64, device=ctx.device)
-    launch(ctx, ret, maps)
     p_ret, p_ctx, p_maps = plain(kernel.prog, kernel.vinfo, ctx0, maps0)
-    torch.cuda.synchronize()
-    err = max([max_abs_diff(words(ret.reshape(-1, 2) if pairs else ret),
-                            words(p_ret.reshape(-1, 2) if pairs
-                                  else p_ret.reshape(1))),
-               max_abs_diff(words(ctx), words(p_ctx))]
-              + [max_abs_diff(words(maps[m]), words(p_maps[m]))
-                 for m in maps])
-    ms = device_ms(lib, lambda: launch(ctx, ret, maps))
+    out = {}
+    for tag, k in (("", kernel), ("earlier_", earlier)):
+        if k is None:
+            continue
+        launch = k.launch32 if pairs else k.launch
+        # one decision each on identical inputs: kernel vs plain version
+        ctx, maps = ctx0.clone(), {m: t.clone() for m, t in maps0.items()}
+        ret = torch.zeros(2, dtype=torch.int32, device=ctx.device) if pairs \
+            else torch.zeros(1, dtype=torch.int64, device=ctx.device)
+        launch(ctx, ret, maps)
+        torch.cuda.synchronize()
+        err = max([max_abs_diff(words(ret.reshape(-1, 2) if pairs else ret),
+                                words(p_ret.reshape(-1, 2) if pairs
+                                      else p_ret.reshape(1))),
+                   max_abs_diff(words(ctx), words(p_ctx))]
+                  + [max_abs_diff(words(maps[m]), words(p_maps[m]))
+                     for m in maps])
+        out[tag + "ms"] = device_ms(lib, lambda: launch(ctx, ret, maps))
+        out[tag + "max_abs_err"] = err
     # plain version: host-driven, so host clock around a synchronised run
     times = []
-    for _ in range(5):
+    for _ in range(plain_reps):
         t0 = time.perf_counter_ns()
         plain(kernel.prog, kernel.vinfo, ctx0, maps0)
         torch.cuda.synchronize()
         times.append(time.perf_counter_ns() - t0)
-    return {"ms": ms, "plain_ms": pct(times, 50) / 1e6, "max_abs_err": err}
+    return {**out, "plain_ms": pct(times, 50) / 1e6}
+
+
+def policy_row(name: str, k, launches: int, t: dict, empty_ms: float,
+               report: dict, pairs: bool = False) -> dict:
+    """A kernels-line row of B1 (B2 with ``pairs``).  The bound: an empty
+    launch timed the same way; the bytes the kernel must move (ctx, the
+    return word, a few map rows) take
+    nanoseconds at 3.35 TB/s, so the launch bounds it."""
+    entry = "kernel32" if pairs else "kernel"
+    return {"name": name, "route": "cuda",
+            "source": KERNEL32_SOURCE if pairs else KERNEL_SOURCE,
+            "replaces": REPLACES32 if pairs else REPLACES,
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
+            "bound_by": "launch", "library_ms": None,
+            "earlier_ms": t["earlier_ms"],
+            "frame_routes": report["routes"], "threads": report["threads"],
+            "shared_bytes": report["attrs"][entry]["shared_bytes"],
+            "local_bytes": report["attrs"][entry]["local_bytes"],
+            "registers": report["attrs"][entry]["registers"]}
+
+
+# the kernel the port shipped before its Hopper redesign: the memory
+# frame, one thread
+EARLIER = {"route": "memory", "one_thread": True}
+
+
+def earlier_kernels(kernels) -> dict:
+    """Each kernel's program built in the earlier design (one library,
+    each under its own prefix), by program name."""
+    from repro_torch.core import cudac
+    built = cudac.build_bundle(
+        cudac.PolicyKernel(k.prog, k.vinfo, prefix=f"e{i}_", **EARLIER)
+        for i, k in enumerate(kernels))
+    return {k.name: k for k in built}
+
+
+def phase3_state(kernel, dev, seed: int, pairs: bool = False) -> tuple:
+    """Phase 3's (or, with ``pairs``, phase 7's) seeded maps and first
+    ctx sample for ``kernel``'s program on the card."""
+    import numpy as np
+
+    import torch_samples as samples
+    from repro_torch.core import pair, torchc
+
+    to_map = pair.map_to_array32 if pairs else torchc.map_to_array
+    to_ctx = pair.ctx_to_vec32 if pairs else torchc.ctx_to_vec
+    prog = kernel.prog
+    host = samples.make_maps(prog, np.random.default_rng(seed))
+    buf = samples.make_ctx(prog, np.random.default_rng(seed + 1))
+    return to_ctx(buf, dev), {n: to_map(m, dev) for n, m in host.items()}
+
+
+def kernel_report(k) -> dict:
+    """A kernel's frame routes, its block, and each entry's
+    ``cudaFuncGetAttributes``; fails where a function on route ``regs``
+    left anything in local memory."""
+    src = k.source
+    attrs = k.attributes()
+    if "memory" not in src.routes:
+        for entry, a in attrs.items():
+            check(a["local_bytes"] == 0, f"{k.name}: {entry} on route regs "
+                  f"uses {a['local_bytes']} bytes of local memory")
+    return {"routes": list(src.routes), "threads": src.threads,
+            "attrs": attrs}
 
 
 
@@ -3731,17 +3828,34 @@ def main() -> int:
     # the model kernels (phase 10) build beside the policy kernels
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         model_build = pool.submit(build_model_kernels)
-        kernels = cudac.build_all(cudac.PolicyKernel(p.program)
-                                  for p in ALL_POLICIES)
+        policies = [cudac.PolicyKernel(p.program) for p in ALL_POLICIES]
+        earlier_build = pool.submit(earlier_kernels, policies)
+        kernels = cudac.build_all(policies)
+        earlier = earlier_build.result()
         model_build_s = model_build.result()
     build_s = time.time() - t0
     stats = cudac.cache_stats()
-    log(f"[build] {len(kernels)} policy kernels and 3 model kernels in "
+    log(f"[build] {len(kernels)} policy kernels, the same programs in the "
+        f"earlier design (one library) and 3 model kernels in "
         f"{build_s:.1f} s (nvcc runs {stats['builds']}, cache hits "
         f"{stats['cache_hits']}); the model kernels' build took "
         f"{model_build_s:.1f} s of it")
+    reports = {k.name: kernel_report(k) for k in kernels}
+    log("[kernel design] per program: frame routes; threads; per entry "
+        "local bytes / registers / shared bytes (cudaFuncGetAttributes), "
+        "localSizeBytes 0 on route regs checked: " + "; ".join(
+            f"{n} {','.join(r['routes'])}; {r['threads']}; " + " ".join(
+                f"{e} {a['local_bytes']}/{a['registers']}/"
+                f"{a['shared_bytes']}" for e, a in r["attrs"].items())
+            for n, r in reports.items()))
+    early_attrs = {n: k.attributes() for n, k in earlier.items()}
+    log("[kernel design] the earlier design (route memory, <<<1,1>>>), "
+        "local bytes / registers per entry: " + "; ".join(
+            f"{n} " + " ".join(f"{e} {a['local_bytes']}/{a['registers']}"
+                               for e, a in at.items())
+            for n, at in early_attrs.items()))
 
     # ---- 3. kernel vs plain version vs interpreter -------------------------
     diff = {}
@@ -3752,6 +3866,28 @@ def main() -> int:
         diff[k.name] = {"launches": k.launches, **r}
     log("[kernels] bit-exact vs torchc and the VM: " + " ".join(
         f"{n}={d['launches']}" for n, d in diff.items()))
+    lib = timing_lib()
+    empty_ms = empty_device_ms(lib)
+    warp_ms = empty_warp_ms(lib)
+    table = []
+    for i, k in enumerate(kernels):
+        ctx0, maps0 = phase3_state(k, dev, 100 + i)
+        t = kernel_timing(lib, k, ctx0, maps0, earlier=earlier[k.name],
+                          plain_reps=3)
+        check(t["max_abs_err"] == 0 and t["earlier_max_abs_err"] == 0,
+              f"{k.name}: a design disagrees on phase 3's state "
+              f"({t['max_abs_err']}, {t['earlier_max_abs_err']})")
+        diff[k.name]["timing"] = t
+        table.append(policy_row(f"policy_kernel[{k.name}]@phase3", k,
+                                diff[k.name]["launches"], t, empty_ms,
+                                reports[k.name]))
+    log("[phase3 time] B1 us per launch on phase 3's state, back to back "
+        "on the card, this design / the earlier design (same run): "
+        + "; ".join(f"{n} {1e3 * d['timing']['ms']:.3f} / "
+                    f"{1e3 * d['timing']['earlier_ms']:.3f}"
+                    for n, d in diff.items())
+        + f"; empty launch <<<1,1>>> {1e3 * empty_ms:.3f}, <<<1,32>>> "
+        f"{1e3 * warp_ms:.3f}; {smi}")
 
     # ---- 4. unsafe programs ------------------------------------------------
     builds = cudac.cache_stats()["builds"]
@@ -3805,9 +3941,7 @@ def main() -> int:
         f"host_fallbacks 0; warm uploads 0")
 
     # ---- 6. timing ---------------------------------------------------------
-    lib = timing_lib()
     host_floor = host_floor_ms(lib)
-    empty_ms = empty_device_ms(lib)
     lat = {t: {"p50_us": pct(r["times_ns"], 50) / 1e3,
                "p99_us": pct(r["times_ns"], 99) / 1e3}
            for t, r in (("cuda", cuda_run), ("interp", interp_run))}
@@ -3818,25 +3952,22 @@ def main() -> int:
         f"8 B copy back + sync) {host_floor * 1e3:.2f} us; {smi}")
     live = {l.fn.kernel.name: l.fn for s in cuda_run["rt"].sections()
             for l in cuda_run["rt"].chain(s)}
-    table = []
+    main_rows = []
     for n in MAIN_PATH:
         b = live[n]
         t = kernel_timing(lib, b.kernel, b._io[:b.kernel.n_fields].clone(),
-                          {m: v.clone() for m, v in b._dev.items()})
-        check(t["max_abs_err"] == 0, f"{n}: kernel disagrees on the "
-              f"main-path state (max abs err {t['max_abs_err']})")
-        # the bound: an empty launch timed the same way; the bytes the
-        # kernel must move (ctx, the return word, a few map rows) take
-        # nanoseconds at 3.35 TB/s, so the launch bounds it
-        table.append({"name": f"policy_kernel[{n}]", "route": "cuda",
-                      "source": KERNEL_SOURCE, "replaces": REPLACES,
-                      "launches": launches[n],
-                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                      "plain_ms": t["plain_ms"], "bound_ms": empty_ms,
-                      "bound_by": "launch", "library_ms": None})
-    log("[kernel time] ms per launch, back to back on the card: " + "; ".join(
-        f"{r['name']} {r['ms']:.6f}" for r in table)
-        + f"; empty launch {empty_ms:.6f}")
+                          {m: v.clone() for m, v in b._dev.items()},
+                          earlier=earlier[n])
+        check(t["max_abs_err"] == 0 and t["earlier_max_abs_err"] == 0,
+              f"{n}: a design disagrees on the main-path state (max abs "
+              f"err {t['max_abs_err']}, {t['earlier_max_abs_err']})")
+        main_rows.append(policy_row(f"policy_kernel[{n}]", b.kernel,
+                                    launches[n], t, empty_ms, reports[n]))
+    table[:0] = main_rows
+    log("[kernel time] ms per launch, back to back on the card, this design "
+        "(the earlier design in the same run): " + "; ".join(
+            f"{r['name']} {r['ms']:.6f} ({r['earlier_ms']:.6f})"
+            for r in main_rows) + f"; empty launch {empty_ms:.6f}; {smi}")
 
     parts = {n: bridge_breakdown(live[n]) for n in MAIN_PATH}
     log("[breakdown] median us per bridge call (call = enqueue + wait + "
@@ -3871,12 +4002,28 @@ def main() -> int:
         check(r["max_abs_err"] == 0, f"{k.name}: pair-form kernel "
               f"disagrees (max abs err {r['max_abs_err']})")
         diff32[k.name] = {"launches32": k.launches32 - before, **r}
+        ctx0, maps0 = phase3_state(k, dev, 200 + i, pairs=True)
+        t = kernel_timing(lib, k, ctx0, maps0, pairs=True,
+                          earlier=earlier[k.name], plain_reps=3)
+        check(t["max_abs_err"] == 0 and t["earlier_max_abs_err"] == 0,
+              f"{k.name}: a pair-form design disagrees on phase 7's state "
+              f"({t['max_abs_err']}, {t['earlier_max_abs_err']})")
+        diff32[k.name]["timing"] = t
+        table.append(policy_row(f"policy_kernel32[{k.name}]@phase7", k,
+                                diff32[k.name]["launches32"], t, empty_ms,
+                                reports[k.name], pairs=True))
     gold = goldens32(dev)
     log(f"[pair] {sum(isinstance(v, dict) for v in diff32.values())} "
         f"policies bit-exact vs torchc.run32 and the VM; rejected for "
         f"cuda32: {[n for n, v in diff32.items() if isinstance(v, str)]}; "
         f"{gold['goldens']} golden programs bit-exact (built in "
         f"{gold['build_s']:.1f} s)")
+    log("[phase7 time] B2 us per launch on phase 7's state, back to back "
+        "on the card, this design / the earlier design (same run): "
+        + "; ".join(f"{n} {1e3 * d['timing']['ms']:.3f} / "
+                    f"{1e3 * d['timing']['earlier_ms']:.3f}"
+                    for n, d in diff32.items() if isinstance(d, dict))
+        + f"; empty launch {1e3 * empty_ms:.3f}; {smi}")
 
     # ---- 8. in-graph closed loop -------------------------------------------
     disp = warmed_dispatcher()
@@ -3916,18 +4063,18 @@ def main() -> int:
          "max_channels": 32}))
     t32 = kernel_timing(lib, sel32.kernel, ctx32,
                         {m: v for m, v in ig["cuda32"]["states"][0].items()
-                         if m not in (FAULT_KEY, CURSOR_KEY)}, pairs=True)
-    check(t32["max_abs_err"] == 0, "pair-form kernel disagrees on the "
-          f"in-graph state (max abs err {t32['max_abs_err']})")
-    table.append({"name": f"policy_kernel32[{sel32.program.name}]",
-                  "route": "cuda", "source": KERNEL32_SOURCE,
-                  "replaces": REPLACES32,
-                  "launches": ig["cuda32"]["launches"],
-                  "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
-                  "plain_ms": t32["plain_ms"], "bound_ms": empty_ms,
-                  "bound_by": "launch", "library_ms": None})
+                         if m not in (FAULT_KEY, CURSOR_KEY)}, pairs=True,
+                        earlier=earlier[sel32.program.name])
+    check(t32["max_abs_err"] == 0 and t32["earlier_max_abs_err"] == 0,
+          "pair-form kernel disagrees on the in-graph state (max abs err "
+          f"{t32['max_abs_err']}, {t32['earlier_max_abs_err']})")
+    table.append(policy_row(f"policy_kernel32[{sel32.program.name}]",
+                            sel32.kernel, ig["cuda32"]["launches"], t32,
+                            empty_ms, reports[sel32.program.name],
+                            pairs=True))
     log(f"[kernel32 time] {table[-1]['name']} {t32['ms']:.6f} ms per "
-        f"launch back to back on the card; empty launch {empty_ms:.6f}; "
+        f"launch back to back on the card (the earlier design "
+        f"{t32['earlier_ms']:.6f}); empty launch {empty_ms:.6f}; "
         f"plain (torchc.run32) {t32['plain_ms']:.6f} ms; {smi}")
     ig_parts = {t: ingraph_breakdown(ig[t]["sel"], ig[t]["states"][0])
                 for t in ("cuda32", "cuda")}
@@ -4080,8 +4227,10 @@ def main() -> int:
     table.extend(sync_rows)
 
     record = {"device": name, "nvidia_smi": smi, "build_s": build_s,
+              "kernel_design": reports, "earlier_attrs": early_attrs,
               "differential": diff, "latency": lat,
               "host_floor_ms": host_floor, "empty_launch_ms": empty_ms,
+              "empty_warp_ms": warp_ms,
               "breakdown_us": parts, "trace": trace,
               "main_path_s": {"cuda": cuda_s, "interp": interp_s},
               "differential32": diff32, "goldens32": gold,

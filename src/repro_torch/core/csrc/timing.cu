@@ -2,7 +2,9 @@
 // by chip_smoke.py only.
 //
 // bpf_empty: an empty <<<1,1>>> kernel -- launch cost with no work, the
-//   floor a decision kernel is held against.
+//   floor a decision kernel is held against; bpf_empty_warp_launch
+//   launches it on one warp, the block of a policy kernel whose program
+//   scans a map, so the cost of the shape itself shows.
 // bpf_spin: holds the stream for `ns` nanoseconds of the card's global
 //   timer.  Launches queued behind it run back to back once it ends, so
 //   CUDA events around them read device time and not the host's issue
@@ -23,6 +25,11 @@ __global__ void bpf_spin(unsigned long long ns) {
 
 extern "C" int bpf_empty_launch(void *stream) {
     bpf_empty<<<1, 1, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bpf_empty_warp_launch(void *stream) {
+    bpf_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 

@@ -15,9 +15,50 @@ because Mosaic lowers no 64-bit integers; Hopper's compiler lowers
 ``u64``.  The pair layout ``[..., 2]`` holding ``[lo, hi]`` has the
 bytes of a little-endian u64 array, so ``<prefix>kernel32`` runs the u64
 decision over its uint32 operands viewed as words (the wrapper checks
-8-byte alignment) and writes the return value as ``[lo, hi]``.  Like
-B1 it is bound by its launch, not by bytes or operations: one thread
-touches a few hundred bytes.
+8-byte alignment) and writes the return value as ``[lo, hi]``.
+
+The design
+----------
+What bounds a decision on the card is latency, not bytes or operations:
+the launch, and every load whose address or use waits on the one before.
+The TPU kernel holds ctx and every map as VMEM tiles for the whole
+decision; the Hopper design keeps the decision's chain on the chip:
+
+* **The frame in registers.**  Each function takes a frame route at
+  emit time (:func:`frame_route`, printed in the source and in
+  :attr:`KernelSource.routes`): ``"regs"`` where every stack access and
+  every stack-pointer argument of a helper has one constant offset by
+  the verifier's facts (``FnInfo.mem_info``, ``FnInfo.stack_args``) —
+  each 8-byte slot it touches a zeroed ``u64`` local ``s_<off>``,
+  narrow accesses shifts and masks on it, map keys and update values
+  read from the slots at the call; ``"memory"`` otherwise, a zeroed
+  512-byte local frame addressed through ``r10``.  Every shipped
+  function takes ``"regs"`` (no local memory on the card).
+* **Scans across a warp.**  A program with a map its helpers scan
+  (``hash``, ``lru_hash``: :func:`scans`) runs warp-uniform: all 32
+  lanes run the same scalar code, the hash probe and the LRU key and
+  victim scans spread their rows over the lanes (a ballot finds the
+  serial walk's first stopping row, a butterfly the lowest index of
+  least recency), and lane 0 makes every store between two
+  ``__syncwarp()``.  Any other program runs on one thread: the lane-0
+  stores and their barriers would cost it time and buy nothing.
+* **The state stays in device memory.**  The ctx and the maps are read
+  in place, hot in the caches between decisions.  Copying them into
+  shared memory at kernel start (the bulk-copy engine into an
+  ``mbarrier``, the block's threads for the ragged ends) was built and
+  measured on the H100 (PERF.md, PR 25): no rule paid for any shipped
+  program, since the copy and its barriers cost more than the
+  decision's dependent reads of a hot table, loops included, and the
+  warp scans on device memory beat the same scans on a staged copy.
+* **Loops** are left to nvcc's unroller, which folds a scan over a
+  register frame into straight-line code, except a loop whose body
+  stores through a ctx or map pointer or calls a map-writing helper or
+  a callee: it gets ``#pragma unroll 1``.  Unrolled in full, a chain of
+  65 read-modify-writes of one map cell kept nvcc busy for more than
+  ten minutes; the same chain through a stack slot or a register built
+  in seconds (``scripts/loop_build_probe.py``, PERF.md).
+* **The hash home slot** is one 32-bit remainder (the folded key and
+  the capacity are below 2^32).
 
 Code generation
 ---------------
@@ -30,20 +71,25 @@ region facts and loop bounds):
   the native tier calls back into Python for most of these, a kernel
   cannot);
 * one ``__device__`` function per program function, main and every
-  ``call_fn`` callee (a fresh zeroed 512-byte frame each), emitted as
-  structured ``if``/``while`` regions where the post-dominator shape
+  ``call_fn`` callee (a fresh zeroed frame each, on its route), emitted
+  as structured ``if``/``while`` regions where the post-dominator shape
   allows and as a label-per-block ``goto`` skeleton otherwise;
-* a ``<<<1,1>>>`` kernel and an ``extern "C"`` launcher that returns
-  ``cudaGetLastError()``, over u64 words and, for programs without an
-  ``lru_hash`` map (the pair tier's rule), over ``[lo, hi]`` pairs.
+* the kernels (one thread, or one warp) and their ``extern "C"``
+  launchers, which return ``cudaGetLastError()``, over u64 words and,
+  for programs without an ``lru_hash`` map (the pair tier's rule), over
+  ``[lo, hi]`` pairs; ``<prefix>attrs`` reports
+  ``cudaFuncGetAttributes``.
 
 Registers are ``u64`` locals; pointers are real device addresses — the
-ctx tensor, rows of the map tensors, the local frame — so a map-value
-pointer stays inside the row the verifier proved.  Each loop header
-counts its visits and stops the function past ``bound + 1`` (the
-reference's ``fori_loop`` trip count), so the kernel terminates even on
-a verifier bug.  The load-time rejections are the reference's, with the
-same messages (:func:`repro_torch.core.torchc.check_supported`).
+ctx tensor, rows of the map tensors, the local frame on route
+``memory`` — so a map-value pointer stays inside the row
+the verifier proved.  On route ``regs``, ``r10`` is the plain version's
+tagged frame top and a stack pointer is read only through the
+verifier's offsets.  Each loop header counts its visits and stops the
+function past ``bound + 1`` (the reference's ``fori_loop`` trip count),
+so the kernel terminates even on a verifier bug.  The load-time
+rejections are the reference's, with the same messages
+(:func:`repro_torch.core.torchc.check_supported`).
 
 Build and launch
 ----------------
@@ -93,6 +139,7 @@ S64_MIN = -(1 << 63)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_TIMEOUT_S = 600    # one nvcc run; past it the build fails
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -121,6 +168,74 @@ def _s64c(x: int) -> str:
     return f"{v}LL" if v >= 0 else f"(-{-v}LL)"
 
 
+def _slot(word: int) -> str:
+    """The register slot of frame word ``word``, named by its distance
+    below the frame top: ``s_8`` holds ``fp-8 .. fp-1``."""
+    return f"s_{STACK_SIZE - 8 * word}"
+
+
+def _slot_ld(byte: int, n: int) -> str:
+    """``bpf_ld_stack`` of ``n`` bytes at frame byte ``byte``, on the
+    slots: the word that holds the byte, shifted and masked."""
+    w, sh = _slot(byte >> 3), (byte & 7) * 8
+    if n >= 8:
+        return w
+    return f"(({w} >> {sh}) & {_u64c((1 << (8 * n)) - 1)})"
+
+
+def _slot_st(byte: int, n: int, val: str) -> str:
+    """``bpf_st_stack`` of ``n`` bytes at frame byte ``byte``, on the
+    slots."""
+    w, sh = _slot(byte >> 3), (byte & 7) * 8
+    if n >= 8:
+        return f"{w} = {val};"
+    m = (1 << (8 * n)) - 1
+    keep = ~(m << sh) & M64
+    return (f"{w} = ({w} & {_u64c(keep)}) | "
+            f"(({val} & {_u64c(m)}) << {sh});")
+
+
+def frame_route(fi) -> str:
+    """``"regs"`` where every stack access and every stack-pointer
+    argument of a helper in the function has one constant frame offset
+    by the verifier's facts (``mem_info``, ``stack_args``), else
+    ``"memory"``.  A stack pointer never reaches a callee: the verifier
+    takes scalar arguments only at ``call_fn``.  (The emitter also keeps
+    a function in memory whose loops fall to the goto skeleton.)"""
+    for pc, insn in enumerate(fi.insns):
+        if is_load(insn.op) or is_store(insn.op):
+            info = fi.mem_info.get(pc)
+            if info is not None and info[0] == "stack" and info[2] is None:
+                return "memory"
+    args = getattr(fi, "stack_args", None)
+    if args is None or any(v is None for v in args.values()):
+        return "memory"
+    return "regs"
+
+
+def frame_words(fi, prog: Program) -> set:
+    """The frame words a function on route ``regs`` touches: its stack
+    loads and stores, its helpers' keys and update values."""
+    words = set()
+    for pc, insn in enumerate(fi.insns):
+        if is_load(insn.op) or is_store(insn.op):
+            info = fi.mem_info.get(pc)
+            if info is not None and info[0] == "stack":
+                words.add((info[2] + insn.off) >> 3)
+    for (pc, argi), off in fi.stack_args.items():
+        mname = fi.call_map.get(pc)
+        if mname is None:
+            continue
+        d = prog.map_decl(mname)
+        if argi == 2:
+            words.add(off >> 3)
+        else:
+            _, cols = device_shape(d.kind, d.value_size, d.max_entries)
+            n = cols if d.kind in ("array", "perdev_array") else cols - 2
+            words.update(range(off >> 3, (off >> 3) + n))
+    return words
+
+
 class _StructAbort(Exception):
     """The structured emitter met a shape it does not model; the goto
     skeleton takes over."""
@@ -134,12 +249,14 @@ class _CudaGen:
     """Emits the program's device functions (structured with a goto
     fallback, after ``repro.core.cc._CGen``)."""
 
-    def __init__(self, prog: Program, vinfo, prefix: str):
+    def __init__(self, prog: Program, vinfo, prefix: str,
+                 route: Optional[str] = None):
         self.prog = prog
         self.prefix = prefix
         self.fns = torchc.fn_infos(vinfo)
         self.map_index = {d.name: i for i, d in enumerate(prog.maps)}
         self.structured = True
+        self.routes = tuple(route or frame_route(fi) for fi in self.fns)
 
     # ---- emission plumbing ----------------------------------------------
     def w(self, line: str) -> None:
@@ -182,6 +299,8 @@ class _CudaGen:
             addr = f"r{insn.src} + {_u64c(insn.off)}"
             if info is None:
                 self.w(f"r{insn.dst} = 0; /* unreachable */")
+            elif info[0] == "stack" and self.regs:
+                self.w(f"r{insn.dst} = {_slot_ld(info[2] + insn.off, n)};")
             elif info[0] == "stack":
                 self.w(f"r{insn.dst} = bpf_ld_stack({addr}, {n});")
             else:
@@ -194,6 +313,8 @@ class _CudaGen:
             addr = f"r{insn.dst} + {_u64c(insn.off)}"
             if info is None:
                 self.w("; /* unreachable store */")
+            elif info[0] == "stack" and self.regs:
+                self.w(_slot_st(info[2] + insn.off, n, val))
             elif info[0] == "stack":
                 self.w(f"bpf_st_stack({addr}, {n}, {val});")
             else:
@@ -255,7 +376,18 @@ class _CudaGen:
         d = self.prog.map_decl(mname)
         rows, cols = device_shape(d.kind, d.value_size, d.max_entries)
         hname = H.HELPERS[insn.imm].name
-        key = f"bpf_ld_stack(r2, {d.key_size})"
+        if self.regs and (pc, 2) in self.fninfo.stack_args:
+            key = _slot_ld(self.fninfo.stack_args[(pc, 2)], d.key_size)
+        else:
+            key = f"bpf_ld_stack(r2, {d.key_size})"
+        # the value words of an update: a map row or the memory frame by
+        # address, the register slots gathered into a local array
+        nval = cols if d.kind in ("array", "perdev_array") else cols - 2
+        src = "bpf_at(r3)"
+        if self.regs and (pc, 3) in self.fninfo.stack_args:
+            w0 = self.fninfo.stack_args[(pc, 3)] >> 3
+            src = "v_"
+            vals = ", ".join(_slot(w0 + k) for k in range(nval))
         m = f"M[{mi}]"
         if d.kind == "ringbuf":
             op = {"ringbuf_reserve": "reserve", "ringbuf_submit": "submit",
@@ -268,7 +400,12 @@ class _CudaGen:
             if hname == "map_lookup_elem":
                 call = f"bpf_{fam}_lookup({m}, {cap}, {key})"
             elif hname == "map_update_elem":
-                call = f"bpf_{fam}_update({m}, {cap}, {key}, r3)"
+                call = f"bpf_{fam}_update({m}, {cap}, {key}, {src})"
+                if src == "v_":
+                    self.w(f"{{ const u64 v_[{nval}] = {{{vals}}};")
+                    self.w(f"  r0 = {call}; }}")
+                    self.w("r1 = 0; r2 = 0; r3 = 0; r4 = 0; r5 = 0;")
+                    return
             elif hname == "ema_update":
                 call = f"bpf_{fam}_ema({m}, {cap}, {key}, r3, r4)"
             else:
@@ -325,6 +462,8 @@ class _CudaGen:
             raise _StructAbort
         ex = targets.pop()
         self.w(f"u64 v{b} = 0;")
+        if self._keeps_rolled(L):
+            self.lines.append("#pragma unroll 1")
         self.w("while (1) {")
         self._loops.append((b, ex))
         self.indent += 1
@@ -334,6 +473,25 @@ class _CudaGen:
         self._loops.pop()
         self.w("}")
         return ex
+
+    def _keeps_rolled(self, L) -> bool:
+        """Whether the loop's body stores through a ctx or map pointer,
+        or calls a map-writing helper or a bpf-to-bpf callee.  Unrolled
+        in full, the chain such a body makes through one cell is folded
+        by nvcc, which for some does not finish (a 65-step EMA of a map
+        cell built for over 10 minutes); every other loop unrolls as
+        nvcc chooses, which measured fastest."""
+        for b in L.body:
+            for pc in range(*self.blocks.ranges[b]):
+                insn = self.insns[pc]
+                if insn.op == "call_fn" or (insn.op == "call" and insn.imm
+                                            in torchc.WRITING_HELPERS):
+                    return True
+                if is_store(insn.op):
+                    info = self.fninfo.mem_info.get(pc)
+                    if info is not None and info[0] != "stack":
+                        return True
+        return False
 
     def _chain(self, b: int, end: Optional[int], depth: int,
                entering: bool = False) -> None:
@@ -437,6 +595,7 @@ class _CudaGen:
     # ---- whole functions ---------------------------------------------------
     def _fn_body(self, fi: int) -> List[str]:
         self.fninfo = self.fns[fi]
+        self.regs = self.routes[fi] == "regs"
         self.insns = list(self.fninfo.insns)
         self.blocks = self.fninfo.cfg
         self.lines = []
@@ -445,6 +604,12 @@ class _CudaGen:
             self.emit_structured()
         except _StructAbort:
             self.structured = False
+            if self.blocks.loops and self.regs:
+                # a goto loop takes no unroll pragma: keep its frame in
+                # memory, where nvcc cannot follow it (see _enter_loop)
+                self.routes = tuple("memory" if i == fi else r
+                                    for i, r in enumerate(self.routes))
+                self.regs = False
             self.lines = []
             self.indent = 1
             self.emit_goto()
@@ -455,37 +620,64 @@ class _CudaGen:
         p = self.prefix
         sig = (f"BPF_DEV u64 {p}fn{{}}(u64 *const *M, u64 r1, u64 r2, "
                "u64 r3, u64 r4, u64 r5)")
-        frame = [f"    u64 fr[{STACK_SIZE // 8}] = {{}};",
-                 f"    u64 r10 = bpf_ptr(fr + {STACK_SIZE // 8});",
-                 "    (void)r10;"]
         out = [sig.format(i) + ";" for i in range(nsub)]
         for i in range(nsub):
+            body = self._fn_body(1 + i)
             out += [sig.format(i) + " {",
+                    f"    // frame route: {self.routes[1 + i]}",
                     "    u64 r0 = 0, r6 = 0, r7 = 0, r8 = 0, r9 = 0;"]
-            out += frame + self._fn_body(1 + i) + ["}", ""]
+            out += self._frame(1 + i) + body + ["}", ""]
+        body = self._fn_body(0)
         out += [f"BPF_DEV u64 {p}main(u64 *const *M, u64 *ctx) {{",
+                f"    // frame route: {self.routes[0]}",
                 "    u64 r0 = 0, r1 = bpf_ptr(ctx), r2 = 0, r3 = 0, r4 = 0,"
                 " r5 = 0, r6 = 0, r7 = 0, r8 = 0, r9 = 0;"]
-        out += frame + self._fn_body(0) + ["}", ""]
+        out += self._frame(0) + body + ["}", ""]
         return "\n".join(out)
+
+    def _frame(self, fi: int) -> List[str]:
+        """Route ``memory``: a zeroed 512-byte local frame and ``r10`` its
+        top.  Route ``regs``: each slot the function touches a zeroed
+        ``u64`` local, and ``r10`` the plain version's tagged frame top,
+        which only the verifier's offsets ever read."""
+        if self.routes[fi] == "memory":
+            return [f"    u64 fr[{STACK_SIZE // 8}] = {{}};",
+                    f"    u64 r10 = bpf_ptr(fr + {STACK_SIZE // 8});",
+                    "    (void)r10;"]
+        words = sorted(frame_words(self.fns[fi], self.prog))
+        out = [f"    u64 {_slot(w)} = 0;" for w in words]
+        return out + [f"    u64 r10 = {_u64c(torchc._STACK_TAG | STACK_SIZE)};",
+                      "    (void)r10;"]
+
+
+THREADS = 32            # one warp: the decision runs warp-uniform
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
     """One program's translation unit.  ``device`` is the helper runtime
     (``header``) plus the program's ``__device__`` functions (``body``;
-    host-compilable with ``BPF_DEV`` redefined); ``launcher`` holds the
-    kernels and their C entries: ``<prefix>kernel`` over u64 words and,
-    for programs the pair tier takes, ``<prefix>kernel32`` over
-    ``[lo, hi]`` pairs."""
+    host-compilable with ``BPF_DEV`` redefined); ``kernels`` holds the
+    ``__global__`` entries — ``<prefix>kernel`` over u64 words and, for
+    programs the pair tier takes, ``<prefix>kernel32`` over ``[lo, hi]``
+    pairs — and ``launchers`` their C entries (``launcher`` is both).
+    ``routes`` is each function's frame route (main first), ``threads``
+    the block."""
     header: str
     body: str
-    launcher: str
+    kernels: str
+    launchers: str
     structured: bool
+    routes: Tuple[str, ...]
+    threads: int
 
     @property
     def device(self) -> str:
         return self.header + "\n" + self.body
+
+    @property
+    def launcher(self) -> str:
+        return self.kernels + "\n" + self.launchers
 
     @property
     def full(self) -> str:
@@ -497,50 +689,102 @@ def supports_pairs(prog: Program) -> bool:
     return not any(d.kind == "lru_hash" for d in prog.maps)
 
 
-def _entry(prog: Program, p: str, word: str, suffix: str, ret: List[str]
-           ) -> List[str]:
+def _entry(prog: Program, p: str, word: str, suffix: str, threads: int,
+           ret: List[str]) -> Tuple[List[str], List[str]]:
+    """The kernel ``<p>kernel<suffix>`` and its launcher: one decision,
+    run by every lane of the warp or by one thread, and thread 0's
+    return word."""
     nm = len(prog.maps)
     kparams = ", ".join([f"{word} *ctx", f"{word} *ret"]
                         + [f"{word} *m{i}" for i in range(nm)])
     lparams = ", ".join(["void *ctx", "void *ret"]
                         + [f"void *m{i}" for i in range(nm)]
                         + ["void *stream"])
-    margs = ", ".join(f"(u64 *)m{i}" for i in range(nm)) or "nullptr"
     kargs = ", ".join([f"({word} *)ctx", f"({word} *)ret"]
                       + [f"({word} *)m{i}" for i in range(nm)])
-    return [
-        f"extern \"C\" __global__ void {p}kernel{suffix}({kparams}) {{",
-        f"    u64 *const M[{max(nm, 1)}] = {{{margs}}};",
-        *ret,
-        "}",
-        "",
+    margs = ", ".join(f"(u64 *)m{i}" for i in range(nm)) or "nullptr"
+    k = [f"extern \"C\" __global__ void {p}kernel{suffix}({kparams}) {{",
+         f"    u64 *const M[{max(nm, 1)}] = {{{margs}}};",
+         f"    u64 r = {p}main(M, (u64 *)ctx);",
+         "    if (threadIdx.x == 0) {", *ret, "    }", "}", ""]
+    launch = [
         f"extern \"C\" int {p}launch{suffix}({lparams}) {{",
-        f"    {p}kernel{suffix}<<<1, 1, 0, (cudaStream_t)stream>>>({kargs});",
+        f"    {p}kernel{suffix}<<<1, {threads}, 0, "
+        f"(cudaStream_t)stream>>>({kargs});",
         "    return (int)cudaGetLastError();",
         "}",
         ""]
+    return k, launch
 
 
-def emit_source(prog: Program, vinfo, prefix: str = "bpf_") -> KernelSource:
+def _attrs_entry(p: str, entries: List[str]) -> List[str]:
+    """``<p>attrs(entry, out)`` reports an entry's
+    ``cudaFuncGetAttributes``: local bytes, registers and shared bytes
+    a thread."""
+    return [f"extern \"C\" int {p}attrs(int entry, long long *out) {{",
+            "    cudaFuncAttributes a;",
+            "    cudaError_t err = " + " : ".join(
+                f"entry == {i} ? cudaFuncGetAttributes(&a, {p}{e})"
+                for i, e in enumerate(entries)) + " : cudaErrorInvalidValue;",
+            "    if (err != cudaSuccess) return (int)err;",
+            "    out[0] = (long long)a.localSizeBytes;",
+            "    out[1] = (long long)a.numRegs;",
+            "    out[2] = (long long)a.sharedSizeBytes;",
+            "    return 0;", "}", ""]
+
+
+def scans(prog: Program) -> bool:
+    """Whether the program has a map its helpers scan (``hash``,
+    ``lru_hash``): the rule that runs its decision warp-uniform."""
+    return any(d.kind in ("hash", "lru_hash") for d in prog.maps)
+
+
+def emit_source(prog: Program, vinfo, prefix: str = "bpf_", *,
+                route: Optional[str] = None,
+                one_thread: bool = False) -> KernelSource:
     """Generate the CUDA translation unit for a verified program.  Every
     program-specific symbol starts with ``prefix``, so several programs
-    can share one translation unit (:func:`build_bundle`)."""
-    gen = _CudaGen(prog, vinfo, prefix)
+    can share one translation unit (:func:`build_bundle`).
+
+    The defaults are the kernel the port ships: each function's frame
+    route by :func:`frame_route`, the decision warp-uniform on one warp
+    where :func:`scans` holds, else on one thread.  ``route`` forces a
+    frame route on every function; ``one_thread`` runs every decision on
+    one thread (with ``route="memory"``, the earlier ``<<<1,1>>>``
+    kernel, which ``chip_smoke.py`` times beside this one)."""
+    if route not in (None, "regs", "memory"):
+        raise CudacError(f"unknown frame route {route!r}")
+    warp = scans(prog) and not one_thread
+    gen = _CudaGen(prog, vinfo, prefix, route)
+    if route == "regs" and "memory" in map(frame_route, gen.fns):
+        raise CudacError(f"policy '{prog.name}': a function with a "
+                         "variable stack offset cannot take route regs")
     body = gen.generate()
     header = (CSRC / "policy_kernel.cuh").read_text()
+    if not warp:
+        header = "#define BPF_WARP 0\n" + header
+    threads = THREADS if warp else 1
     p = prefix
-    launcher = [f"// policy '{prog.name}': one thread runs the whole decision"]
-    launcher += _entry(prog, p, "u64", "", [f"    *ret = {p}main(M, ctx);"])
+    kernels = [f"// policy '{prog.name}': frame routes "
+               f"{', '.join(gen.routes)}; {threads} thread(s)"]
+    k, launch = _entry(prog, p, "u64", "", threads, ["        *ret = r;"])
+    kernels += k
+    entries = ["kernel"]
     if supports_pairs(prog):
         # B2, the pair form: the same decision over uint32 [lo, hi]
         # operands, which hold the bytes of little-endian u64 words
-        launcher += _entry(prog, p, "uint32_t", "32", [
-            f"    u64 r = {p}main(M, (u64 *)ctx);",
-            "    ret[0] = (uint32_t)r;",
-            "    ret[1] = (uint32_t)(r >> 32);"])
+        k32, launch32 = _entry(prog, p, "uint32_t", "32", threads,
+                               ["        ret[0] = (uint32_t)r;",
+                                "        ret[1] = (uint32_t)(r >> 32);"])
+        kernels += k32
+        launch += launch32
+        entries.append("kernel32")
+    launch += _attrs_entry(p, entries)
     return KernelSource(header=header, body=body,
-                        launcher="\n".join(launcher),
-                        structured=gen.structured)
+                        kernels="\n".join(kernels),
+                        launchers="\n".join(launch),
+                        structured=gen.structured, routes=gen.routes,
+                        threads=threads)
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +838,7 @@ def compile_library(src: str, name: str) -> ctypes.CDLL:
             try:
                 r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
                                     str(cu)], capture_output=True,
-                                   timeout=600)
+                                   timeout=NVCC_TIMEOUT_S)
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise CudacError(f"nvcc did not run on {name}: {e}") from e
             finally:
@@ -645,9 +889,10 @@ class PolicyKernel:
     ``launch(ctx, ret, maps)`` runs one decision in place: ``ctx`` is
     ``int64[n_fields]``, ``ret`` ``int64[1]``, each map
     ``int64[device_shape]``, all contiguous on one device.  On CUDA
-    tensors it launches the kernel (``<<<1,1>>>`` on the current stream,
-    no synchronisation) and counts the launch in :attr:`launches`; on
-    CPU tensors it runs :mod:`torchc`.
+    tensors it launches the kernel (one thread, or one warp for a
+    program that scans, on the current stream, no synchronisation) and
+    counts the launch in :attr:`launches`; on CPU tensors it runs
+    :mod:`torchc`.
 
     ``launch32(ctx2, ret2, maps2)`` is the pair form (B2): ``ctx2``
     ``int32[n_fields, 2]``, ``ret2`` ``int32[2]``, each map
@@ -656,9 +901,12 @@ class PolicyKernel:
     plain version is :func:`torchc.run32`.
 
     The kernel library is built at first CUDA use, or up front with
-    :meth:`build`; ``prefix`` names the program's symbols in it."""
+    :meth:`build`; ``prefix`` names the program's symbols in it;
+    ``route`` and ``one_thread`` go to :func:`emit_source` (the defaults
+    are the shipped design)."""
 
-    def __init__(self, prog: Program, vinfo=None, *, prefix: str = "bpf_"):
+    def __init__(self, prog: Program, vinfo=None, *, prefix: str = "bpf_",
+                 route: Optional[str] = None, one_thread: bool = False):
         try:
             torchc.check_supported(prog)
         except torchc.TorchcError as e:
@@ -677,11 +925,13 @@ class PolicyKernel:
         self.n_fields = prog.ctx_type.size // 8
         # whether the pair-form entry exists (the pair tier's rule)
         self.pairs = supports_pairs(prog)
-        self.source = emit_source(prog, vinfo, prefix)
+        self.source = emit_source(prog, vinfo, prefix, route=route,
+                                  one_thread=one_thread)
         self.launches = 0
         self.launches32 = 0
         self._fn = None
         self._fn32 = None
+        self._lib = None
 
     @property
     def name(self) -> str:
@@ -697,7 +947,28 @@ class PolicyKernel:
             fn32.argtypes = [ctypes.c_void_p] * nargs
             fn32.restype = ctypes.c_int
             self._fn32 = fn32
+        self._lib = lib
         self._fn = fn
+
+    def attributes(self) -> Dict[str, Dict[str, int]]:
+        """``cudaFuncGetAttributes`` of each built entry (``kernel``,
+        and ``kernel32`` where the pair form exists): local bytes a
+        thread, registers a thread, static shared bytes."""
+        self.build()
+        fn = getattr(self._lib, f"{self.prefix}attrs")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        out = {}
+        for i, entry in enumerate(["kernel"] + (["kernel32"] if self.pairs
+                                                 else [])):
+            vals = (ctypes.c_longlong * 3)()
+            err = fn(i, vals)
+            if err:
+                raise CudacError(f"policy kernel '{self.name}': attributes "
+                                 f"of {entry}: CUDA error {err}")
+            out[entry] = dict(zip(("local_bytes", "registers",
+                                   "shared_bytes"), vals))
+        return out
 
     def build(self) -> "PolicyKernel":
         if self._fn is None:
@@ -789,14 +1060,20 @@ def build_bundle(kernels: Iterable[PolicyKernel], per_library: int = 48
     """Build many small kernels into shared libraries of up to
     ``per_library`` programs each (one helper runtime per library, one
     nvcc process per library, all in parallel): nvcc's fixed cost per
-    process dominates a program of a few instructions.  Every kernel
-    needs its own ``prefix``."""
+    process dominates a program of a few instructions.  Programs whose
+    helper runtime differs (one thread or a warp) go to libraries of
+    their own.  Every kernel needs its own ``prefix``."""
     kernels = list(kernels)
     prefixes = [k.prefix for k in kernels]
     if len(set(prefixes)) != len(prefixes):
         raise CudacError("build_bundle: kernels share a symbol prefix")
-    groups = [kernels[i:i + per_library]
-              for i in range(0, len(kernels), per_library)]
+    # one helper runtime a library: programs whose runtime differs (the
+    # warp setting) go to libraries of their own
+    by_header: Dict[str, List[PolicyKernel]] = {}
+    for k in kernels:
+        by_header.setdefault(k.source.header, []).append(k)
+    groups = [ks[i:i + per_library] for ks in by_header.values()
+              for i in range(0, len(ks), per_library)]
 
     def one(group: List[PolicyKernel]) -> None:
         src = "\n".join([group[0].source.header]

@@ -137,6 +137,10 @@ def fn_infos(vinfo) -> list:
     return list(fns) if fns else [vinfo]
 
 
+# map_update_elem, ema_update and the ringbuf helpers
+WRITING_HELPERS = (2, 64, 65, 66, 67)
+
+
 def written_map_names(prog: Program, vinfo) -> frozenset:
     """Maps the program can mutate, from the verifier's region facts.
 
@@ -153,7 +157,7 @@ def written_map_names(prog: Program, vinfo) -> frozenset:
                 info = fi.mem_info.get(pc)
                 if info is not None and info[0] not in ("ctx", "stack"):
                     out.add(info[1])
-            elif insn.op == "call" and insn.imm in (2, 64, 65, 66, 67):
+            elif insn.op == "call" and insn.imm in WRITING_HELPERS:
                 mname = fi.call_map.get(pc)
                 if mname is not None:
                     out.add(mname)

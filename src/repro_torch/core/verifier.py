@@ -293,6 +293,10 @@ class FnInfo:
         dataclasses.field(default_factory=dict)
     call_map: Dict[int, Optional[str]] = dataclasses.field(
         default_factory=dict)
+    # (pc, argi) -> frame offset of a helper's stack-pointer argument,
+    # None where the offset is not one constant (recorded like mem_info)
+    stack_args: Dict[Tuple[int, int], Optional[int]] = dataclasses.field(
+        default_factory=dict)
     loop_bounds: Dict[int, int] = dataclasses.field(default_factory=dict)
     max_steps: int = 0
     stack_usage: int = 0           # deepest frame byte this fn touches
@@ -317,6 +321,7 @@ class Verifier:
         self.mem_info: Dict[int, Tuple[str, Optional[str],
                                        Optional[int]]] = {}
         self.call_map: Dict[int, Optional[str]] = {}
+        self.stack_args: Dict[Tuple[int, int], Optional[int]] = {}
         # filled by verify(): shared CFG, proven per-loop trip bounds
         # (header block -> iterations), and a whole-program dynamic step
         # bound the interpreter uses as its fuel budget
@@ -351,6 +356,7 @@ class Verifier:
         self.cfg = main.cfg
         self.mem_info = main.mem_info
         self.call_map = main.call_map
+        self.stack_args = main.stack_args
         self.loop_bounds = main.loop_bounds
         self.max_steps = main.max_steps
 
@@ -437,6 +443,7 @@ class Verifier:
         self.insns = insns
         self.mem_info = fn.mem_info
         self.call_map = fn.call_map
+        self.stack_args = fn.stack_args
         self.loop_bounds = fn.loop_bounds
         self._min_stack = STACK_SIZE
         self._check_structure(insns)
@@ -1093,6 +1100,13 @@ class Verifier:
         # differing region kinds cannot survive to acceptance: the joined
         # state degrades to uninit and _mem_region rejects it
 
+    def _record_stack_arg(self, pc: int, argi: int, v: AVal) -> None:
+        """The frame offset of a helper's stack-pointer argument, joined
+        over every visit as :meth:`_record_mem` joins a load's."""
+        cur = v.lo if v.lo == v.hi else None
+        prev = self.stack_args.get((pc, argi), cur)
+        self.stack_args[(pc, argi)] = cur if prev == cur else None
+
     def _mem_region(self, pc: int, reg_idx: int, v: AVal, off: int, size: int,
                     *, is_write: bool) -> None:
         if v.kind == UNINIT:
@@ -1217,6 +1231,7 @@ class Verifier:
                     raise VerifierError(
                         f"{h.name}: R{argi} must point to the stack, got {v.name()}", pc)
                 self._mem_region(pc, argi, v, 0, need, is_write=False)
+                self._record_stack_arg(pc, argi, v)
                 for byte in range(v.lo, v.hi + need):
                     if not (st.stack_init >> byte) & 1:
                         raise VerifierError(

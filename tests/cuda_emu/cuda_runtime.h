@@ -1,6 +1,7 @@
-// A CPU stand-in for the parts of the CUDA runtime the model kernels use,
-// so their kernel code builds as host C++ and runs on the CPU
-// (tests/test_torch_kernels_emulated.py).  Every CUDA thread of a block
+// A CPU stand-in for the parts of the CUDA runtime the model kernels and
+// the policy kernel use, so their kernel code builds as host C++ and runs
+// on the CPU (tests/test_torch_kernels_emulated.py,
+// tests/test_torch_policy_kernel_emulated.py).  Every CUDA thread of a block
 // is a std::thread; __syncthreads is a barrier over the block and each
 // warp shuffle or vote a write, a barrier over the warp, a read and a
 // barrier.
@@ -76,6 +77,7 @@ namespace emu {
 inline std::barrier<> *block_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars, wg_bars;
 inline float lanes[1024];
+inline unsigned long long lanes64[1024];
 
 // Run fn() as every thread of every block of grid, blocks in turn; a
 // barrier for the block, one for each warp and one for each warpgroup of
@@ -121,6 +123,42 @@ inline bool __any_sync(unsigned, bool pred) {
     emu::warp_bars[w]->arrive_and_wait();
     return any;
 }
+
+// The integer votes and shuffles the policy kernel's scans use, as the
+// PTX ISA defines them for a full warp (vote.sync.ballot.b32: bit l of
+// the result is lane l's predicate; shfl.sync.idx / .bfly: the value of
+// lane src, or of lane ^ mask; a 64-bit shuffle is two 32-bit ones);
+// __ffs: the 1-based position of the lowest set bit, 0 for 0.
+inline unsigned __ballot_sync(unsigned, bool pred) {
+    const unsigned t = threadIdx.x, w = t / 32;
+    emu::lanes64[t] = pred;
+    emu::warp_bars[w]->arrive_and_wait();
+    unsigned b = 0;
+    for (int l = 0; l < 32; ++l)
+        b |= (emu::lanes64[w * 32 + l] != 0 ? 1u : 0u) << l;
+    emu::warp_bars[w]->arrive_and_wait();
+    return b;
+}
+
+inline unsigned long long emu_shfl64(unsigned long long v, unsigned src) {
+    const unsigned t = threadIdx.x, w = t / 32;
+    emu::lanes64[t] = v;
+    emu::warp_bars[w]->arrive_and_wait();
+    const unsigned long long r = emu::lanes64[w * 32 + src % 32];
+    emu::warp_bars[w]->arrive_and_wait();
+    return r;
+}
+
+inline int __shfl_sync(unsigned, int v, int src) {
+    return (int)emu_shfl64((unsigned)v, (unsigned)src);
+}
+
+inline unsigned long long __shfl_xor_sync(unsigned, unsigned long long v,
+                                          int mask) {
+    return emu_shfl64(v, (threadIdx.x % 32) ^ (unsigned)mask);
+}
+
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
     const unsigned t = threadIdx.x, w = t / 32;

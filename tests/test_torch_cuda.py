@@ -442,3 +442,137 @@ def test_a_capture_over_a_gloo_group_raises(card, nccl_and_gloo):
             sel.all_reduce(x, "data", state, group=gloo,
                            latency_ns=torch.zeros((), dtype=torch.int64,
                                                   device=card))
+
+
+def _run_views(k, prog, host, bufs, card, misalign: bool) -> None:
+    """Each ctx buffer through ``k`` on the card, ctx and maps in views
+    that start 8 bytes past a 16-byte bound with ``misalign``, held to
+    the plain version and the interpreter, maps carried along."""
+    def view(t):
+        buf = torch.zeros(t.numel() + 2, dtype=torch.int64, device=card)
+        off = (-buf.data_ptr() % 16) // 8 + (1 if misalign else 0)
+        v = buf[off:off + t.numel()].view(t.shape)
+        v.copy_(t)
+        assert (v.data_ptr() % 16 == 8) == misalign
+        return v
+
+    dev = {n: view(torchc.map_to_array(m, card)) for n, m in host.items()}
+    plain = {n: t.clone() for n, t in dev.items()}
+    vm = VM(prog.insns, host, subprogs=prog.subprogs)
+    for buf in bufs:
+        ctx = view(torchc.ctx_to_vec(buf, card))
+        ret = view(torch.zeros(1, dtype=torch.int64, device=card))
+        k.launch(ctx, ret, dev)
+        p_ret, p_ctx, plain = torchc.run(prog, k.vinfo,
+                                         torchc.ctx_to_vec(buf, card), plain)
+        v_buf = bytearray(buf)
+        v_ret = vm.run(v_buf) & (2**64 - 1)
+        torch.cuda.synchronize()
+        assert int(ret[0]) & (2**64 - 1) == int(p_ret) & (2**64 - 1) == v_ret
+        assert torchc.vec_to_bytes(ctx) == bytes(v_buf)
+        for n, m in host.items():
+            assert torch.equal(dev[n], plain[n]), n
+            assert np.array_equal(dev[n].cpu().numpy(),
+                                  m.to_device().view("<i8")), n
+
+
+_DESIGNS = {"shipped": {}, "memory": {"route": "memory"}}
+
+
+@pytest.mark.parametrize("misalign", [False, True], ids=["aligned16",
+                                                         "aligned8"])
+@pytest.mark.parametrize("design", list(_DESIGNS))
+def test_designs_bit_exact_on_views(card, design, misalign):
+    """The shipped kernels and the memory route, with ctx and every map
+    16-byte aligned or only 8-byte aligned (views of a larger buffer):
+    bit-exact for every shipped policy."""
+    ks = cudac.build_bundle(
+        cudac.PolicyKernel(pol.program, prefix=f"v{i}_", **_DESIGNS[design])
+        for i, pol in enumerate(ALL_POLICIES))
+    for i, k in enumerate(ks):
+        prog = k.prog
+        assert set(k.source.routes) == ({"memory"} if design == "memory"
+                                        else {"regs"})
+        host = samples.make_maps(prog, np.random.default_rng(100 + i))
+        rng = np.random.default_rng(101 + i)
+        bufs = [samples.make_ctx(prog, rng) for _ in range(4)]
+        _run_views(k, prog, host, bufs, card, misalign)
+
+
+def test_hash_chains_on_the_card(card):
+    """Hash tables of 100, 2,100 and 10,000 rows whose chains wrap past
+    the last row, probed by the warp: bit-exact on the card, with no
+    local memory; the 2,100-row kernel also captured in a CUDA graph and
+    replayed against eager launches."""
+    for rows in (100, 2100, 10_000):
+        prog, host, bufs = samples.hash_chain_case(rows)
+        k = cudac.PolicyKernel(prog, prefix=f"c{rows}_").build()
+        assert k.source.threads == 32
+        assert k.attributes()["kernel"]["local_bytes"] == 0
+        _run_views(k, prog, host, bufs, card, misalign=False)
+    prog, host, bufs = samples.hash_chain_case(2100)
+    k = cudac.PolicyKernel(prog, prefix="g2100_").build()
+    maps = {n: torchc.map_to_array(m, card) for n, m in host.items()}
+    eager = {n: t.clone() for n, t in maps.items()}
+    ctx = torchc.ctx_to_vec(bufs[0], card)
+    ret = torch.zeros(1, dtype=torch.int64, device=card)
+    e_ctx, e_ret = ctx.clone(), ret.clone()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            k.launch(ctx, ret, maps)
+    for buf in bufs:
+        c = torchc.ctx_to_vec(buf, card)
+        ctx.copy_(c)
+        e_ctx.copy_(c)
+        g.replay()
+        k.launch(e_ctx, e_ret, eager)
+        torch.cuda.synchronize()
+        assert torch.equal(ret, e_ret) and torch.equal(ctx, e_ctx)
+    for n in maps:
+        assert torch.equal(maps[n], eager[n]), n
+
+
+@pytest.mark.parametrize("g", samples.loop_chain_goldens(),
+                         ids=lambda g: g.id)
+def test_loop_chains_build_in_time(card, g, monkeypatch):
+    """A 65-step chain through a map cell, a stack slot or a register
+    builds within two minutes of nvcc (a full unroll of such a loop can
+    take more than ten), and both entries agree with the interpreter."""
+    import repro_torch.core as C
+    from repro_torch.core import pair
+
+    monkeypatch.setattr(cudac, "NVCC_TIMEOUT_S", 120)
+    prog = g.program(C)
+    k = cudac.PolicyKernel(prog, prefix="chain_").build()
+    assert k.attributes()["kernel"]["local_bytes"] == 0
+    buf = C.make_ctx("tuner", **samples.PAIR_CTX).buf
+    host = g.host_maps(C)
+    v_buf = bytearray(buf)
+    v_ret = VM(prog.insns, host).run(v_buf) & (2**64 - 1)
+    for pairs in (False, True):
+        h = g.host_maps(C)
+        if pairs:
+            maps = {n: pair.map_to_array32(m, card) for n, m in h.items()}
+            ctx = pair.ctx_to_vec32(buf, card)
+            ret = torch.zeros(2, dtype=torch.int32, device=card)
+            k.launch32(ctx, ret, maps)
+            torch.cuda.synchronize()
+            assert pair.ret32_to_int(ret) == v_ret
+            words = {n: t.cpu().numpy().reshape(-1).view("<i8")
+                     for n, t in maps.items()}
+            ctx_bytes = ctx.cpu().numpy().tobytes()
+        else:
+            maps = {n: torchc.map_to_array(m, card) for n, m in h.items()}
+            ctx = torchc.ctx_to_vec(buf, card)
+            ret = torch.zeros(1, dtype=torch.int64, device=card)
+            k.launch(ctx, ret, maps)
+            torch.cuda.synchronize()
+            assert int(ret[0]) & (2**64 - 1) == v_ret
+            words = {n: t.cpu().numpy().reshape(-1) for n, t in maps.items()}
+            ctx_bytes = torchc.vec_to_bytes(ctx)
+        assert ctx_bytes == bytes(v_buf)
+        for n, m in host.items():
+            assert np.array_equal(words[n],
+                                  m.to_device().view("<i8").reshape(-1)), n

@@ -111,7 +111,7 @@ def test_pair_entry_and_its_checks():
     src = k.source.launcher
     assert 'extern "C" __global__ void bpf_kernel32(uint32_t *ctx, ' \
         'uint32_t *ret, uint32_t *m0)' in src
-    assert "bpf_kernel32<<<1, 1, 0, (cudaStream_t)stream>>>" in src
+    assert "bpf_kernel32<<<1, 32, 0, (cudaStream_t)stream>>>" in src
     assert "ret[1] = (uint32_t)(r >> 32);" in src
     maps = {n: torch.zeros((*k.shapes[n], 2), dtype=torch.int32)
             for n in k.names}

@@ -379,6 +379,106 @@ def pair_goldens() -> List[Golden]:
     return g
 
 
+# 65 dependent u64 steps x = (x * (w - 1) + i) / w: through a looked-up
+# map cell, through one stack slot (a register on route regs), or in a
+# register, with w = (n_ranks & 255) + 1 (a divisor nvcc cannot fold,
+# which the verifier proves nonzero) or a constant w (as the pair
+# goldens' in-loop EMA divides by its weight, 4)
+_CHAIN_W = """
+        ldxdw  r8, [r1+n_ranks]
+        and64i r8, 255
+        add64i r8, 1
+"""
+_CHAIN_STEP = """
+        mov64  r4, r8
+        sub64i r4, 1
+        mul64  r3, r4
+        add64  r3, r6
+        {op}  r3, r8
+"""
+_CHAIN_BODY = {
+    "lookup_store": ("""
+        stw    [r10-4], 2
+        mov64  r6, 0
+    loop:
+        jge    r6, 65, out
+        ldmap  r1, p32_ema
+        mov64  r2, r10
+        add64i r2, -4
+        call   map_lookup_elem
+        jeqi   r0, 0, out
+        ldxdw  r3, [r0+0]
+""", """
+        stxdw  [r0+0], r3
+        add64i r6, 1
+        ja     loop
+    out:
+        mov64  r0, 0
+        exit
+"""),
+    "stack_slot": ("""
+        lddw   r7, 0xFFFFFFFFFF
+        stxdw  [r10-8], r7
+        mov64  r6, 0
+    loop:
+        jge    r6, 65, out
+        ldxdw  r3, [r10-8]
+""", """
+        stxdw  [r10-8], r3
+        add64i r6, 1
+        ja     loop
+    out:
+        ldxdw  r0, [r10-8]
+        exit
+"""),
+    "register": ("""
+        lddw   r3, 0xFFFFFFFFFF
+        mov64  r6, 0
+    loop:
+        jge    r6, 65, out
+""", """
+        add64i r6, 1
+        ja     loop
+    out:
+        mov64  r0, r3
+        exit
+"""),
+}
+
+
+def _chain(shape: str, op: str, w) -> str:
+    head, tail = _CHAIN_BODY[shape]
+    init = _CHAIN_W if w is None else f"\n        mov64  r8, {w}\n"
+    return init + head + _CHAIN_STEP.replace("{op}", op) + tail
+
+
+def loop_chain_goldens() -> List[Golden]:
+    """Loops that carry one value through 65 dependent u64 steps, the
+    shapes whose full unroll might keep nvcc busy for minutes once the
+    frame is in registers: a division chain through a looked-up map cell
+    (``map_lookup_elem`` then plain stores), through a stack slot with
+    no helper, and in a register, by a divisor read from the ctx and by
+    the constant 4; by the constant 9 through a stack slot; and a
+    stack-slot chain that multiplies and never divides.  Of these, nvcc
+    does not finish the map-cell chain by 4 unrolled in full
+    (``scripts/loop_build_probe.py``), so ``cudac`` keeps a loop that
+    stores through a map pointer rolled.  Run on ``PAIR_CTX``
+    (``n_ranks`` 8: w = 9)."""
+    ema = (_EMA_MAP,)
+    seed = (("p32_ema", 2, 0xFFFFFFFFFF),)
+    out = []
+    for w, tag in ((None, "div"), (4, "div4")):
+        for shape in _CHAIN_BODY:
+            maps = (ema, seed) if shape == "lookup_store" else ()
+            out.append(Golden(f"chain_{tag}_{shape}",
+                              _chain(shape, "div64", w), *maps))
+    out.append(Golden("chain_div9_stack_slot",
+                      _chain("stack_slot", "div64", 9)))
+    out.append(Golden("chain_mul_stack_slot",
+                      _chain("stack_slot", "mul64", None)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # model-kernel inputs (B3-B5)
 # ---------------------------------------------------------------------------
@@ -417,3 +517,58 @@ def bf16_round(a: np.ndarray) -> np.ndarray:
     bits = bits.astype(np.uint64)
     rounded = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
     return rounded.astype(np.uint32).view(np.float32)
+
+
+# key = (comm_id & 63) * 100 + 99: every key homes to row 99 of a
+# 100-row table, so a chain runs 99 -> 0 -> 1 -> ... across the wrap
+_CHAIN_ASM = """
+    ldxdw  r2, [r1+comm_id]
+    and64i r2, 63
+    mul64i r2, 100
+    add64i r2, 99
+    stxdw  [r10-8], r2
+    ldmap  r1, chain_map
+    mov64  r2, r10
+    add64i r2, -8
+    call   map_lookup_elem
+    jeqi   r0, 0, miss
+    ldxdw  r3, [r0+0]
+    add64i r3, 1
+    stxdw  [r0+0], r3
+    mov64  r0, r3
+    exit
+miss:
+    stdw   [r10-16], 7
+    ldmap  r1, chain_map
+    mov64  r2, r10
+    add64i r2, -8
+    mov64  r3, r10
+    add64i r3, -16
+    mov64  r4, 0
+    call   map_update_elem
+    exit
+"""
+
+
+def hash_chain_case(entries: int):
+    """A program that looks ``(comm_id & 63) * 100 + 99`` up in an
+    ``entries``-row hash map (inserting 7 on a miss, adding 1 on a hit),
+    the map seeded with 40 such keys, and ctx buffers for comm ids
+    0..47 then three repeats.  At 100 rows every key homes to row 99, so
+    the chain wraps to rows 0..38 and spans two 32-row windows."""
+    from repro_torch.core import assemble, map_decl
+    decl = map_decl("chain_map", kind="hash", key_size=8, value_size=8,
+                    max_entries=entries)
+    prog = assemble(_CHAIN_ASM, name=f"chain{entries}", section="tuner",
+                    maps=(decl,))
+    m = MapRegistry().create("chain_map", "hash", key_size=8, value_size=8,
+                             max_entries=entries)
+    for k in range(40):             # at 100 rows all home to row 99
+        m.update_u64(k * 100 + 99, k)
+    bufs = []
+    for comm in list(range(48)) + [3, 41, 45]:
+        buf = bytearray(prog.ctx_type.size)
+        off = prog.ctx_type.offset_of("comm_id")
+        buf[off:off + 8] = comm.to_bytes(8, "little")
+        bufs.append(buf)
+    return prog, {"chain_map": m}, bufs
