@@ -521,33 +521,24 @@ def host_floor_ms(lib, reps: int = 2000) -> float:
 
 
 def bridge_breakdown(bridge, reps: int = 500) -> dict:
-    """Median host times (us) of one bridge call and of its parts: the
-    enqueue of the device round trip (ctx up, the wrapper's checks and
-    launch, ctx+ret back), the wait for it (stream sync), and the step
-    writeback of the kernel-written maps."""
-    import torch
+    """Median host times (us) of one bridge call and of its parts, read
+    from the bridge's own spans (``repro_torch.obs.trace``) over ``reps``
+    calls on the last call's ctx under a CPU-activity profiler session:
+    the call, the upload of host-dirty maps, the enqueue of the device
+    round trip (ctx up, the launch, ctx+ret back), the wait for it
+    (stream sync), and the step writeback of the kernel-written maps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
 
     n = bridge.kernel.n_fields
     buf = bytearray(bridge._io_host[:n].numpy().tobytes())
-    stream = torch.cuda.current_stream()
-    parts = {"call": [], "enqueue": [], "wait": [], "writeback": []}
-    for _ in range(reps):
-        t0 = time.perf_counter_ns()
-        bridge(bytearray(buf))
-        t1 = time.perf_counter_ns()
-        bridge._io[:n].copy_(bridge._io_host[:n], non_blocking=True)
-        bridge.kernel.launch(bridge._io[:n], bridge._io[n:], bridge._dev)
-        bridge._io_host.copy_(bridge._io, non_blocking=True)
-        t2 = time.perf_counter_ns()
-        stream.synchronize()
-        t3 = time.perf_counter_ns()
-        bridge._writeback(bridge._written)
-        t4 = time.perf_counter_ns()
-        parts["call"].append(t1 - t0)
-        parts["enqueue"].append(t2 - t1)
-        parts["wait"].append(t3 - t2)
-        parts["writeback"].append(t4 - t3)
-    return {k: pct(v, 50) / 1e3 for k, v in parts.items()}
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(reps):
+            bridge(bytearray(buf))
+    return {k: pct(trace.spans("bridge." + k)["dur_ns"], 50) / 1e3
+            for k in ("call", "upload", "enqueue", "wait", "writeback")}
 
 
 def kernel_timing(lib, kernel, ctx0, maps0, pairs: bool = False,
@@ -3970,8 +3961,9 @@ def main() -> int:
             for r in main_rows) + f"; empty launch {empty_ms:.6f}; {smi}")
 
     parts = {n: bridge_breakdown(live[n]) for n in MAIN_PATH}
-    log("[breakdown] median us per bridge call (call = enqueue + wait + "
-        "writeback + host work): " + "; ".join(
+    log("[breakdown] median us per bridge call, from its spans under the "
+        "profiler (call = upload + enqueue + wait + writeback + host "
+        "work): " + "; ".join(
             f"{n} " + " ".join(f"{k} {v:.1f}" for k, v in p.items())
             for n, p in parts.items()))
     trace = device_trace(main_path_window(cuda_run["disp"]))

@@ -89,8 +89,10 @@ import hashlib
 import math
 import struct
 import threading
+from time import perf_counter_ns as _ns
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+import torch.autograd.profiler as _prof
 import torch.distributed as dist
 
 from ..core import faults as _faults
@@ -98,6 +100,7 @@ from ..core.context import (Algo, AxisKind, CollType, PROFILER_CONTEXT,
                             Proto, make_ctx)
 from ..core.maps import RingView
 from ..core.runtime import PolicyRuntime, global_runtime
+from ..obs.trace import STORE as _spans
 from . import algorithms as alg
 from .cost_model import CostModel, HwProfile, TPU_V5E
 
@@ -265,7 +268,8 @@ class CollectiveDispatcher:
         self.cache_hits = 0
         self.cache_misses = 0
         # fault containment state: monotone decision counter (the fault
-        # clock), sliding window of recent fault marks, safe-mode latch
+        # clock, and the id of each decision's spans), sliding window of
+        # recent fault marks, safe-mode latch
         self.fault_stats = FaultStats()
         self._decision_seq = 0
         self._fault_marks: Deque[int] = collections.deque()
@@ -445,6 +449,15 @@ class CollectiveDispatcher:
     def decide(self, coll: int, size_bytes: int, n: int, *,
                axis_kind: int = AxisKind.DATA, dtype_bytes: int = 4,
                axis_name: str = "?") -> Decision:
+        self._decision_seq = seq = self._decision_seq + 1
+        # spans only while a torch.profiler session runs (obs/trace.py):
+        # one flag read a decision; the spans' boundaries stay in locals
+        # and are stored once, as the call returns
+        traced = _prof._is_profiler_enabled
+        if traced:
+            t0 = _spans.start()
+        else:
+            _spans.off = True
         cfg = self.config
         guards = cfg.enable_runtime_guards
         if guards:
@@ -453,8 +466,7 @@ class CollectiveDispatcher:
             n = self._san(n, 1)
             axis_kind = self._san(axis_kind, 0)
             dtype_bytes = self._san(dtype_bytes, 1)
-            self._decision_seq += 1
-            if self._safe_mode and self._decision_seq >= self._safe_until:
+            if self._safe_mode and seq >= self._safe_until:
                 # cooldown elapsed: half-open re-probe — resume invoking
                 # policies; renewed faults refill the window and re-enter
                 self._safe_mode = False
@@ -481,11 +493,19 @@ class CollectiveDispatcher:
                 # memoization elides policy + cost-table work only; the
                 # log and data-plane hooks still observe every dispatch
                 self.cache_hits += 1
+                if traced:
+                    t1 = _ns()
                 self.decisions.append(d)
+                if traced:
+                    t3 = _ns()
                 self._net_hook(d)
                 self._maybe_auto_sync()
+                if traced:
+                    _spans.decision(seq, t0, t1, t1, t3)
                 return d
             self.cache_misses += 1
+        if traced:
+            t1 = _ns()
         faulted = False
         if safe:
             # safe mode: tuner policies are detached from the decision
@@ -587,9 +607,15 @@ class CollectiveDispatcher:
             if self.runtime.epoch == gen_epoch \
                     and self.runtime.chain_fingerprint("tuner") == gen_fp:
                 cache[key] = d
+        if traced:
+            t2 = _ns()
         self.decisions.append(d)
+        if traced:
+            t3 = _ns()
         self._net_hook(d)
         self._maybe_auto_sync()
+        if traced:
+            _spans.decision(seq, t0, t1, t2, t3)
         return d
 
     def _evict_oldest_half(self, cache: Dict[Tuple, Decision]) -> None:

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from ..device import require_cuda
+from ..obs import trace as _trace
 from . import faults as _faults
 from .context import Algo, Proto
 from .cudac import PolicyKernel, check_supported32
@@ -270,27 +271,32 @@ class DeviceBridge:
 
     # -- the runtime host-closure contract ---------------------------------
     def __call__(self, ctx_buf: bytearray) -> int:
-        with self._lock:
+        # spans only while a torch.profiler session runs (obs/trace.py),
+        # each with the id of the span that made the call
+        with _trace.span(_trace.BRIDGE_CALL), self._lock:
             self.stats.calls += 1
-            try:
-                self._upload_dirty()
-            except Exception:
-                if not self._retry_upload():
-                    self.stats.host_fallbacks += 1
-                    return self._host_tier_fn()(ctx_buf)
+            with _trace.span(_trace.BRIDGE_UPLOAD):
+                try:
+                    self._upload_dirty()
+                except Exception:
+                    if not self._retry_upload():
+                        self.stats.host_fallbacks += 1
+                        return self._host_tier_fn()(ctx_buf)
             n = self._n
-            self._io_np[:n] = np.frombuffer(ctx_buf, dtype="<i8")
-            ctx = self._io[:n]
-            ctx.copy_(self._io_host[:n], non_blocking=True)
-            if self.word_width == 32:
-                self.kernel.launch32(words_to_pairs(ctx),
-                                     words_to_pairs(self._io[n:]).reshape(2),
-                                     self._dev)
-            else:
-                self.kernel.launch(ctx, self._io[n:], self._dev)
-            self._io_host.copy_(self._io, non_blocking=True)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream().synchronize()
+            with _trace.span(_trace.BRIDGE_ENQUEUE):
+                self._io_np[:n] = np.frombuffer(ctx_buf, dtype="<i8")
+                ctx = self._io[:n]
+                ctx.copy_(self._io_host[:n], non_blocking=True)
+                if self.word_width == 32:
+                    self.kernel.launch32(
+                        words_to_pairs(ctx),
+                        words_to_pairs(self._io[n:]).reshape(2), self._dev)
+                else:
+                    self.kernel.launch(ctx, self._io[n:], self._dev)
+                self._io_host.copy_(self._io, non_blocking=True)
+            with _trace.span(_trace.BRIDGE_WAIT):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream().synchronize()
             ctx_buf[:] = self._io_np[:n].tobytes()
             rv = int(self._io_np[n]) & M64
             if self._domain_offs is not None:
@@ -302,13 +308,14 @@ class DeviceBridge:
                                       or c > 0xFFFFFFFF):
                     self._pending_domain_faults += 1
             if self.sync == "step":
-                try:
-                    self._writeback(self._written)
-                except Exception:
-                    # contained: keep the maps device-dirty so flush()
-                    # retries the writeback later
-                    self.stats.download_failures += 1
-                    self._device_dirty.update(self._written)
+                with _trace.span(_trace.BRIDGE_WRITEBACK):
+                    try:
+                        self._writeback(self._written)
+                    except Exception:
+                        # contained: keep the maps device-dirty so flush()
+                        # retries the writeback later
+                        self.stats.download_failures += 1
+                        self._device_dirty.update(self._written)
             else:
                 self._device_dirty.update(self._written)
                 if self.n_shards > 1:

@@ -24,6 +24,7 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..models.config import ModelConfig
+from ..obs import trace as _trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +97,10 @@ class _Prefetcher:
 
     def _work(self):
         while not self._stop.is_set():
-            b = self.ds.batch(self._step)
+            # a span only while a torch.profiler session runs
+            # (obs/trace.py), on this producer thread, with the batch's step
+            with _trace.span(_trace.DATA_BATCH, self._step):
+                b = self.ds.batch(self._step)
             self._step += 1
             while not self._stop.is_set():
                 try:

@@ -35,6 +35,7 @@ from ..models import init_params
 from ..models.config import ModelConfig
 from ..models.layers import MeshAxes
 from ..models.transformer import tree_leaves
+from ..obs import trace as _trace
 from .checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .optimizer import adamw_init
 from .step import TrainStepConfig, gather_tree, make_train_step, shard_tree
@@ -132,7 +133,10 @@ class Trainer:
                     self._build_step()
                     self.rebuilds += 1
 
-                batch = next(it)
+                # a span only while a torch.profiler session runs
+                # (obs/trace.py), with the step's index
+                with _trace.span(_trace.TRAINER_DATA_WAIT, self.step_idx):
+                    batch = next(it)
                 t0 = time.perf_counter()
                 self.params, self.opt_state, metrics = self._step_fn(
                     self.params, self.opt_state, batch)

@@ -28,6 +28,7 @@ MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core",
            "repro_torch.core.pair", "repro_torch.core.shardmerge",
            "repro_torch.core.jit", "repro_torch.core.cc", "repro_torch.obs",
            "repro_torch.obs.recorder", "repro_torch.obs.exporter",
+           "repro_torch.obs.trace",
            "repro_torch.policies", "repro_torch.collectives",
            "repro_torch.collectives.dispatch",
            "repro_torch.collectives.algorithms",
