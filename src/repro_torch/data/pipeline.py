@@ -12,6 +12,11 @@ multi-host-consistent without a data service.
 
 For VLM/audio configs the pipeline also emits stub modality inputs
 (patch/frame embeddings), as the reference does.
+
+The weighted draws use CDFs built once, not ``RandomState.choice(p=)``:
+legacy ``choice`` with ``p`` is cumsum, normalise, ``random_sample``, then
+a right-sided ``searchsorted``, and its checks of ``p`` draw nothing, so
+the tokens and the generator's state afterwards are the reference's.
 """
 
 from __future__ import annotations
@@ -52,6 +57,11 @@ class SyntheticLMDataset:
         ranks = np.arange(1, V + 1, dtype=np.float64)
         zipf = 1.0 / ranks ** dcfg.zipf_a
         self.unigram = zipf / zipf.sum()
+        # the tables legacy ``choice(p=)`` rebuilds on every call
+        self.succ_cdf = self.succ_p.cumsum()
+        self.succ_cdf /= self.succ_cdf[-1]
+        self.unigram_cdf = self.unigram.cumsum()
+        self.unigram_cdf /= self.unigram_cdf[-1]
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
         d, c = self.dcfg, self.cfg
@@ -62,11 +72,12 @@ class SyntheticLMDataset:
         # vectorized markov walk with 20% unigram resets
         for t in range(1, S + 1):
             state = toks[:, t - 1] % self.n_states
-            choice = rng.choice(4, size=B, p=self.succ_p)
+            choice = self.succ_cdf.searchsorted(rng.random_sample(B),
+                                                side="right")
             nxt = self.succ[state, choice]
             reset = rng.rand(B) < 0.2
-            nxt[reset] = rng.choice(c.vocab, size=reset.sum(),
-                                    p=self.unigram)
+            nxt[reset] = self.unigram_cdf.searchsorted(
+                rng.random_sample(reset.sum()), side="right")
             toks[:, t] = nxt
         out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         if c.family == "audio":

@@ -31,6 +31,7 @@ from jax.sharding import Mesh
 
 import repro.models as R
 from repro.collectives.dispatch import reset_dispatcher as ref_reset
+from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke
 from repro.core.runtime import PolicyRuntime as RefRuntime
 from repro.data import DataConfig as RefDataConfig
@@ -47,7 +48,7 @@ from repro.train.schedule import cosine_schedule as ref_cosine
 from repro.train.schedule import linear_warmup as ref_warmup
 
 from repro_torch.collectives.dispatch import reset_dispatcher
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.runtime import PolicyRuntime
 from repro_torch.data import DataConfig, SyntheticLMDataset, make_dataset
 from repro_torch.models import init_params, loss_fn
@@ -229,6 +230,51 @@ def test_batches_bit_equal_the_reference(arch):
                     np.testing.assert_array_equal(got[k], want[k])
     finally:
         pre.stop()
+
+
+def test_full_size_batches_bit_equal_the_reference():
+    """The training cell's shape: Qwen3-1.7B's 151,936-token vocabulary,
+    4 x 2048, at step 0 and a later step (two reference batches, about
+    2 s each on a CPU)."""
+    dcfg = dict(seq_len=2048, global_batch=4, seed=11)
+    ref = RefDataset(ref_config("qwen3-1.7b"), RefDataConfig(**dcfg))
+    port = SyntheticLMDataset(get_config("qwen3-1.7b"), DataConfig(**dcfg))
+    assert port.cfg.vocab == 151_936
+    for step in (0, 7):
+        want, got = ref.batch(step), port.batch(step)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "whisper-large-v3"])
+def test_cdf_tables_and_the_generator_after_a_batch(arch, monkeypatch):
+    """The tables are legacy ``choice(p=)``'s own, and a batch leaves its
+    generator where the reference's leaves it: the modality stubs are
+    drawn next.  Batch 2 wide, so many positions draw no reset."""
+    dcfg = dict(seq_len=16, global_batch=2, seed=3)
+    port = SyntheticLMDataset(get_smoke_config(arch), DataConfig(**dcfg))
+    ref = RefDataset(ref_smoke(arch), RefDataConfig(**dcfg))
+    for cdf, p in ((port.succ_cdf, port.succ_p),
+                   (port.unigram_cdf, port.unigram)):
+        assert cdf.dtype == np.float64
+        assert cdf[-1] == 1.0
+        np.testing.assert_array_equal(cdf, p.cumsum() / p.cumsum()[-1])
+    made = []
+    real = np.random.RandomState
+
+    def recording(*a):
+        made.append(real(*a))
+        return made[-1]
+
+    monkeypatch.setattr(np.random, "RandomState", recording)
+    after = []
+    for ds in (port, ref):
+        ds.batch(5)
+        rng = made[-1]
+        after.append((rng.get_state(), rng.randn(3)))
+    np.testing.assert_equal(after[0], after[1])
 
 
 def test_prefetcher_stops():
