@@ -23,21 +23,30 @@ ARCH_IDS = [
     "stablelm-12b",
 ]
 
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+# the port's own architectures, which the reference has not: resolved by
+# ``get_config`` and ``get_smoke_config``, left out of ``ARCH_IDS`` and
+# ``all_archs`` (the reference's pool)
+PORT_ONLY_IDS = ["moonlight-16b-a3b"]
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_")
+            for a in ARCH_IDS + PORT_ONLY_IDS}
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + PORT_ONLY_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
-    return mod.CONFIG
+    return _module(arch).CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced variant of the same family: 2 layers, d_model<=512,
     <=4 experts — runs a forward/train step on CPU."""
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
-    return mod.SMOKE
+    return _module(arch).SMOKE
 
 
 def shape_supported(arch: str, shape: str) -> Optional[str]:

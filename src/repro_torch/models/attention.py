@@ -1,4 +1,5 @@
-"""GQA attention: full / sliding-window / chunked-local, train + decode.
+"""GQA attention: full / sliding-window / chunked-local, train + decode;
+and multi-head latent attention (``mla_train``), training only.
 
 The port of ``repro/models/attention.py``.  Tensor layout (per rank):
   activations x: (B, S, D)
@@ -77,18 +78,20 @@ def qkv_project(p, x, cfg: ModelConfig, ax: MeshAxes, positions,
 
 
 def _sdpa(q, k, v, mask, *, scale, kv_map):
-    """(B,S,h,hd) x (B,T,kv,hd) -> (B,S,h,hd).
+    """(B,S,h,hd) x (B,T,kv,hd) x (B,T,kv,dv) -> (B,S,h,dv).
 
-    ``kv_map`` (h,) maps each local q head to its local kv head."""
+    ``kv_map`` (h,) maps each local q head to its local kv head; None
+    where k and v have a head for each q head already."""
     B, S, H, hd = q.shape
-    k = k.index_select(2, kv_map)   # (B, T, H, hd)
-    v = v.index_select(2, kv_map)
+    if kv_map is not None:
+        k = k.index_select(2, kv_map)   # (B, T, H, hd)
+        v = v.index_select(2, kv_map)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     logits = torch.where(mask[:, None, :, :], logits,
                          torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w.to(v.dtype), v)
-    return out.reshape(B, S, H, hd)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def causal_mask(S: int, positions, kv_positions, *, window: int = 0):
@@ -119,6 +122,36 @@ def attention_train(p, x, cfg: ModelConfig, ax: MeshAxes, *,
                 kv_map=_kv_map(cfg, ax, x.device))
     out = out.reshape(B, S, -1)
     return row_linear(out, p["wo"], ax, fsdp_dim=1)
+
+
+def mla_train(p, x, cfg: ModelConfig, ax: MeshAxes):
+    """Multi-head latent attention (DeepSeek-V3, no query LoRA), causal,
+    training/prefill path: ``q = x wq`` split per head into ``q_nope``
+    and ``q_pe``; ``[c, k_pe] = x wkv_a``, ``c`` RMS-normed;
+    ``[k_nope, v] = c wkv_b``; RoPE on ``q_pe`` and on ``k_pe``, one
+    head shared by every q head, rotating the two halves; softmax over
+    ``[q_nope, q_pe] . [k_nope, k_pe]`` scaled by ``(nope + rope)^-0.5``;
+    ``o = attn . v``, then ``wo``.  Heads are not split (tp == 1)."""
+    if ax.tp > 1:
+        raise NotImplementedError("latent attention runs at tp == 1")
+    B, S, D = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    q = col_linear(x, p["wq"], ax, fsdp_dim=0).reshape(B, S, H, dn + dr)
+    c, k_pe = col_linear(x, p["wkv_a"], ax, fsdp_dim=0).split(
+        [cfg.kv_lora_rank, dr], dim=-1)
+    c = rms_norm(c, p["kv_norm"], cfg.rms_eps)
+    k_nope, v = col_linear(c, p["wkv_b"], ax, fsdp_dim=0).reshape(
+        B, S, H, dn + dv).split([dn, dv], dim=-1)
+    ang = rope_freqs(dr, cfg.rope_theta, positions[0])
+    q_nope, q_pe = q.split([dn, dr], dim=-1)
+    q = torch.cat([q_nope, apply_rope(q_pe, ang)], dim=-1)
+    k_pe = apply_rope(k_pe[:, :, None, :], ang).expand(B, S, H, dr)
+    k = torch.cat([k_nope, k_pe], dim=-1)
+    mask = causal_mask(S, positions, positions)
+    out = _sdpa(q, k, v, mask, scale=(dn + dr) ** -0.5, kv_map=None)
+    return row_linear(out.reshape(B, S, H * dv), p["wo"], ax, fsdp_dim=1)
 
 
 def attention_decode(p, x, cache, cfg: ModelConfig, ax: MeshAxes, pos,

@@ -1,4 +1,7 @@
-"""Unified model configuration covering all six assigned families."""
+"""Unified model configuration covering all six assigned families, and
+``LatentMoEConfig``, the DeepSeek-V3 block (latent attention, a
+sigmoid-routed expert layer that holds a share of the experts, leading
+dense layers), which the port has and the reference has not."""
 
 from __future__ import annotations
 
@@ -65,6 +68,15 @@ class ModelConfig:
     mlstm_chunk: int = 128                   # xLSTM chunkwise-parallel width
     source: str = ""                         # citation
 
+    # The DeepSeek-V3 block's settings are fields of ``LatentMoEConfig``
+    # alone, so that every other config's fields stay the reference's;
+    # here they are class constants that keep each model on its own path.
+    rms_eps = 1e-6                           # every RMSNorm's epsilon
+    first_k_dense = 0                        # leading dense layers
+    kv_lora_rank = 0                         # > 0: latent attention (MLA)
+    router = "softmax"                       # softmax (capacity) | sigmoid
+    shared_d_ff = 0                          # 0: moe_d_ff * n_shared_experts
+
     # ---- derived -----------------------------------------------------------
     @property
     def hd(self) -> int:
@@ -73,6 +85,14 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def shared_width(self) -> int:
+        return self.shared_d_ff or self.moe_d_ff * self.n_shared_experts
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -144,3 +164,54 @@ class ModelConfig:
             # rglru blocks above added mlp only on rglru kind; attn adds too
             pass
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """The DeepSeek-V3 block (arXiv:2412.19437), as Moonlight and Kimi-K2
+    publish it: multi-head latent attention without a query LoRA, and an
+    expert layer routed by ``sigmoid`` scores, selected by the top-k of
+    the scores plus a per-expert bias that training moves by a sign rule,
+    gated by the selected scores normalised and scaled, with no token
+    dropped; shared experts of their own width; ``first_k_dense`` dense
+    layers (width ``d_ff``) before the expert layers.
+
+    This chip holds experts ``[expert_shard * n_experts_held, ...)`` of
+    ``n_experts`` (all of them where ``n_experts_held`` is 0): the router
+    scores all ``n_experts`` and the layer computes its own experts'
+    part of the result (expert parallelism without its exchange)."""
+    rms_eps: float = 1e-6
+    first_k_dense: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0                     # per-head q/k dims without rope
+    qk_rope_dim: int = 0                     # per-head q dims, shared k, rope
+    v_head_dim: int = 0
+    routed_scale: float = 1.0                # gates' scale after normalising
+    bias_rate: float = 0.0                   # the bias's step (gamma)
+    n_experts_held: int = 0
+    expert_shard: int = 0
+    shared_d_ff: int = 0
+    router = "sigmoid"
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first expert held, experts held)."""
+        n = self.n_experts_held or self.n_experts
+        return self.expert_shard * n, n
+
+    def param_count(self, *, active_only: bool = False) -> int:
+        """Parameters this chip holds (or, ``active_only``, uses for one
+        token: its top-k experts as if all were held), bias included."""
+        D, H, V = self.d_model, self.n_heads, self.vocab
+        dn, dr, dv, R = (self.qk_nope_dim, self.qk_rope_dim,
+                         self.v_head_dim, self.kv_lora_rank)
+        attn = D * H * (dn + dr) + D * (R + dr) + R + R * H * (dn + dv) \
+            + H * dv * D
+        norms = 2 * D
+        dense = attn + norms + 3 * D * self.d_ff
+        e = self.top_k if active_only else self.held_experts[1]
+        moe = attn + norms + 3 * D * self.moe_d_ff * e \
+            + 3 * D * self.shared_width + D * self.n_experts + self.n_experts
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        return int(emb + D + self.first_k_dense * dense
+                   + (self.n_layers - self.first_k_dense) * moe)

@@ -255,10 +255,10 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     return y.to(dt) * scale.to(dt) + bias.to(dt)
 
 
-def apply_norm(kind: str, x, p):
+def apply_norm(kind: str, x, p, rms_eps: float = 1e-6):
     if kind == "layernorm":
         return layer_norm(x, p["scale"], p["bias"])
-    return rms_norm(x, p["scale"])
+    return rms_norm(x, p["scale"], rms_eps)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from .config import ModelConfig
 from .layers import (MeshAxes, apply_norm, save_psum_contexts, vp_embed,
                      vp_logits, vp_logits_loss)
 from .mlp import mlp_block
-from .moe import moe_block
+from .moe import held_moe_block, moe_block
 
 
 def tree_map(fn, tree):
@@ -115,6 +115,8 @@ def _norm_params(init: _Init, cfg, n, with_bias=None):
 
 def _attn_params(init: _Init, cfg: ModelConfig, ax: MeshAxes, n: int,
                  *, cross: bool = False):
+    if cfg.is_mla:
+        return _mla_params(init, cfg, n)
     hp = cfg.padded_heads(ax.tp)
     hd = cfg.hd
     kvw = cfg.n_kv_heads * hd
@@ -147,6 +149,21 @@ def _attn_params(init: _Init, cfg: ModelConfig, ax: MeshAxes, n: int,
     return p, s
 
 
+def _mla_params(init: _Init, cfg: ModelConfig, n: int):
+    """Latent attention's projections (``attention.mla_train``)."""
+    D, H, R = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = {"wq": init.dense((n, D, H * (dn + dr))),
+         "wkv_a": init.dense((n, D, R + dr)),
+         "kv_norm": init.full((n, R), 1.0),
+         "wkv_b": init.dense((n, R, H * (dn + dv))),
+         "wo": init.dense((n, H * dv, D))}
+    s = {"wq": (None, "data", None), "wkv_a": (None, "data", None),
+         "kv_norm": (None, None), "wkv_b": (None, "data", None),
+         "wo": (None, None, "data")}
+    return p, s
+
+
 def _mlp_params(init: _Init, cfg: ModelConfig, n: int,
                 *, d_ff: Optional[int] = None):
     F = d_ff or cfg.d_ff
@@ -167,18 +184,32 @@ def _mlp_params(init: _Init, cfg: ModelConfig, n: int,
     return p, s
 
 
+class BufferSpec(tuple):
+    """The spec of a leaf no gradient moves (a selection bias): sharded
+    as its entries say, given no gradient, left alone by the optimizer."""
+
+
 def _moe_params(init: _Init, cfg: ModelConfig, n: int):
+    """The capacity layer's experts split over the model axis; the
+    sigmoid router's layer holds ``cfg.held_experts`` and a selection
+    bias per expert, a buffer the optimizer leaves alone (its spec a
+    ``BufferSpec``)."""
     E, Fe, D = cfg.n_experts, cfg.moe_d_ff, cfg.d_model
+    held = cfg.held_experts[1] if cfg.router == "sigmoid" else E
+    ep = None if cfg.router == "sigmoid" else "model"
     p = {"router": init.dense((n, D, E), scale=0.02),
-         "w1": init.dense((n, E, D, Fe)),
-         "w3": init.dense((n, E, D, Fe)),
-         "w2": init.dense((n, E, Fe, D))}
+         "w1": init.dense((n, held, D, Fe)),
+         "w3": init.dense((n, held, D, Fe)),
+         "w2": init.dense((n, held, Fe, D))}
     s = {"router": (None, None, None),
-         "w1": (None, "model", "data", None),
-         "w3": (None, "model", "data", None),
-         "w2": (None, "model", None, "data")}
+         "w1": (None, ep, "data", None),
+         "w3": (None, ep, "data", None),
+         "w2": (None, ep, None, "data")}
+    if cfg.router == "sigmoid":
+        p["router_bias"] = init.zeros((n, E))
+        s["router_bias"] = BufferSpec((None, None))
     if cfg.n_shared_experts:
-        Fs = Fe * cfg.n_shared_experts
+        Fs = cfg.shared_width
         p["shared_w1"] = init.dense((n, D, Fs))
         p["shared_w3"] = init.dense((n, D, Fs))
         p["shared_w2"] = init.dense((n, Fs, D))
@@ -239,13 +270,13 @@ def _rglru_params(init: _Init, cfg: ModelConfig, n: int):
 
 
 def _block_params(init: _Init, kind: str, cfg: ModelConfig, ax: MeshAxes,
-                  n: int, *, with_cross: bool = False):
+                  n: int, *, with_cross: bool = False, dense: bool = False):
     p, s = {}, {}
     p["ln1"], s["ln1"] = _norm_params(init, cfg, n)
     if kind == "attn":
         p["attn"], s["attn"] = _attn_params(init, cfg, ax, n)
         p["ln2"], s["ln2"] = _norm_params(init, cfg, n)
-        if cfg.is_moe:
+        if cfg.is_moe and not dense:
             p["moe"], s["moe"] = _moe_params(init, cfg, n)
         elif cfg.d_ff:
             p["mlp"], s["mlp"] = _mlp_params(init, cfg, n)
@@ -268,7 +299,9 @@ def _block_params(init: _Init, kind: str, cfg: ModelConfig, ax: MeshAxes,
 
 
 def _period(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
-    kinds = cfg.block_kinds()
+    """(the stacked layers' kinds, period length, layers in the tail);
+    the ``first_k_dense`` leading layers are a group of their own."""
+    kinds = cfg.block_kinds()[cfg.first_k_dense:]
     if cfg.family == "ssm" and cfg.slstm_every:
         plen = cfg.slstm_every
     elif cfg.family == "hybrid" and cfg.rglru_pattern:
@@ -277,9 +310,9 @@ def _period(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
         plen = 1
     if cfg.nope_every:
         plen = plen * cfg.nope_every // math.gcd(plen, cfg.nope_every)
-    plen = min(plen, cfg.n_layers)
-    n_full = cfg.n_layers // plen
-    rem = cfg.n_layers - n_full * plen
+    plen = min(plen, len(kinds))
+    n_full = len(kinds) // plen
+    rem = len(kinds) - n_full * plen
     return kinds, plen, rem
 
 
@@ -294,7 +327,7 @@ def init_params(key, cfg: ModelConfig, ax: MeshAxes, *, device=None
         torch.Generator(device=dev).manual_seed(int(key))
     init = _Init(gen, dev)
     kinds, plen, rem = _period(cfg)
-    n_full = cfg.n_layers // plen
+    n_full = len(kinds) // plen
 
     params: Dict[str, Any] = {}
     specs: Dict[str, Any] = {}
@@ -320,6 +353,9 @@ def init_params(key, cfg: ModelConfig, ax: MeshAxes, *, device=None
                              with_cross=with_cross)
         params["tail"].append(p)
         specs["tail"].append(s)
+    if cfg.first_k_dense:
+        params["dense"], specs["dense"] = _block_params(
+            init, "attn", cfg, ax, cfg.first_k_dense, dense=True)
 
     if cfg.family == "audio":
         enc_cfg = dataclasses.replace(cfg, qk_norm=False, qkv_bias=False,
@@ -354,21 +390,27 @@ def _without_data(specs):
 
 def _apply_block(p, kind: str, x, cfg: ModelConfig, ax: MeshAxes, *,
                  use_rope: bool = True, causal: bool = True,
-                 enc_kv=None, aux_acc=None):
-    h = apply_norm(cfg.norm, x, p["ln1"])
+                 enc_kv=None, aux_acc=None, loads=None):
+    h = apply_norm(cfg.norm, x, p["ln1"], cfg.rms_eps)
     if kind == "attn":
-        y = att.attention_train(p["attn"], h, cfg, ax, use_rope=use_rope,
-                                causal=causal)
+        if cfg.is_mla:
+            y = att.mla_train(p["attn"], h, cfg, ax)
+        else:
+            y = att.attention_train(p["attn"], h, cfg, ax,
+                                    use_rope=use_rope, causal=causal)
         x = x + y
         if enc_kv is not None:
             hx = apply_norm(cfg.norm, x, p["ln_x"])
             x = x + att.cross_attention(p["xattn"], hx, enc_kv, cfg, ax)
-        h2 = apply_norm(cfg.norm, x, p["ln2"])
-        if cfg.is_moe:
-            y2, aux = moe_block(p["moe"], h2, cfg, ax)
+        h2 = apply_norm(cfg.norm, x, p["ln2"], cfg.rms_eps)
+        if "moe" in p:
+            if cfg.router == "sigmoid":
+                y2, aux = held_moe_block(p["moe"], h2, cfg, ax, loads)
+            else:
+                y2, aux = moe_block(p["moe"], h2, cfg, ax)
             if aux_acc is not None:
                 aux_acc = aux_acc + aux
-        elif cfg.d_ff:
+        elif "mlp" in p:
             y2 = mlp_block(p["mlp"], h2, cfg, ax)
         else:
             y2 = 0.0
@@ -379,7 +421,7 @@ def _apply_block(p, kind: str, x, cfg: ModelConfig, ax: MeshAxes, *,
         x = x + rec.slstm_block(p["slstm"], h, cfg, ax)
     elif kind == "rglru":
         x = x + rec.rglru_block(p["rglru"], h, cfg, ax)
-        h2 = apply_norm(cfg.norm, x, p["ln2"])
+        h2 = apply_norm(cfg.norm, x, p["ln2"], cfg.rms_eps)
         if cfg.d_ff:
             x = x + mlp_block(p["mlp"], h2, cfg, ax)
     return x, aux_acc
@@ -396,18 +438,28 @@ def _use_rope(cfg: ModelConfig, layer_idx: int) -> bool:
 
 
 def _stack_forward(params, x, cfg: ModelConfig, ax: MeshAxes, *,
-                   causal: bool = True, enc_kv=None):
-    """Run the period-grouped stack.  Returns (x, aux_loss)."""
+                   causal: bool = True, enc_kv=None, loads=None):
+    """Run the leading dense layers, then the period-grouped stack.
+    Returns (x, aux_loss); the sigmoid-routed expert layers append their
+    (token, choice) counts to ``loads`` in layer order where it is a
+    list."""
     kinds, plen, rem = _period(cfg)
-    n_full = cfg.n_layers // plen
+    n_full = len(kinds) // plen
     aux = torch.zeros((), device=x.device)
 
     def period(x, aux, i: int):
+        # the loads are outputs, so that a recompute adds none
+        got = []
         for j in range(plen):
             x, aux = _apply_block(_layer(params["blocks"][j], i), kinds[j],
                                   x, cfg, ax, use_rope=_use_rope(cfg, j),
-                                  causal=causal, enc_kv=enc_kv, aux_acc=aux)
-        return x, aux
+                                  causal=causal, enc_kv=enc_kv, aux_acc=aux,
+                                  loads=got)
+        return x, aux, tuple(got)
+
+    def dense(x, aux, i: int):
+        return _apply_block(_layer(params["dense"], i), "attn", x, cfg, ax,
+                            causal=causal, aux_acc=aux)
 
     # remat: each period's activations are recomputed in the backward;
     # under "save_psum" the recompute replays the period's tp_psum outputs
@@ -415,18 +467,41 @@ def _stack_forward(params, x, cfg: ModelConfig, ax: MeshAxes, *,
     remat = cfg.remat and torch.is_grad_enabled()
     ctx_fn = save_psum_contexts if cfg.remat_policy == "save_psum" \
         else noop_context_fn
-    for i in range(n_full):
+    for i in range(cfg.first_k_dense):
         if remat:
-            x, aux = checkpoint(period, x, aux, i, use_reentrant=False,
+            x, aux = checkpoint(dense, x, aux, i, use_reentrant=False,
                                 context_fn=ctx_fn, preserve_rng_state=False)
         else:
-            x, aux = period(x, aux, i)
+            x, aux = dense(x, aux, i)
+    for i in range(n_full):
+        if remat:
+            x, aux, got = checkpoint(period, x, aux, i, use_reentrant=False,
+                                     context_fn=ctx_fn,
+                                     preserve_rng_state=False)
+        else:
+            x, aux, got = period(x, aux, i)
+        if loads is not None:
+            loads.extend(got)
     for j, p in enumerate(params["tail"]):
         li = n_full * plen + j
         x, aux = _apply_block(_layer(p, 0), kinds[li], x, cfg, ax,
                               use_rope=_use_rope(cfg, li),
-                              causal=causal, enc_kv=enc_kv, aux_acc=aux)
+                              causal=causal, enc_kv=enc_kv, aux_acc=aux,
+                              loads=loads)
     return x, aux
+
+
+def router_biases(params, cfg: ModelConfig) -> list:
+    """Each sigmoid-routed expert layer's selection bias (a view into
+    its stacked leaf), in the order ``loads`` gets their counts."""
+    kinds, plen, rem = _period(cfg)
+    out = [params["blocks"][j]["moe"]["router_bias"][i]
+           for i in range(len(kinds) // plen) for j in range(plen)
+           if "moe" in params["blocks"][j]]
+    return out + [p["moe"]["router_bias"][0] for p in params["tail"]
+                  if "moe" in p]
+
+
 
 
 def _encode_audio(params, frames, cfg: ModelConfig, ax: MeshAxes):
@@ -446,9 +521,10 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ax: MeshAxes, dtype):
     return x * (cfg.d_model ** 0.5) if cfg.family == "hybrid" else x
 
 
-def forward_hidden(params, batch, cfg: ModelConfig, ax: MeshAxes):
+def forward_hidden(params, batch, cfg: ModelConfig, ax: MeshAxes, *,
+                   loads=None):
     """batch: dict with 'tokens' (B,S) [+ 'frames' | 'patches'].
-    Returns (hidden (B,S',D), aux)."""
+    Returns (hidden (B,S',D), aux); ``loads`` as ``_stack_forward``."""
     dtype = cfg.torch_dtype
     x = embed_tokens(params, batch["tokens"], cfg, ax, dtype)
 
@@ -460,11 +536,13 @@ def forward_hidden(params, batch, cfg: ModelConfig, ax: MeshAxes):
         pat = batch["patches"].to(dtype) @ proj
         x = torch.cat([pat, x], dim=1)
 
-    x, aux = _stack_forward_dispatch(params, x, cfg, ax, enc_out=enc_out)
-    return apply_norm(cfg.norm, x, _layer(params["final_norm"], 0)), aux
+    x, aux = _stack_forward_dispatch(params, x, cfg, ax, enc_out=enc_out,
+                                     loads=loads)
+    return apply_norm(cfg.norm, x, _layer(params["final_norm"], 0),
+                      cfg.rms_eps), aux
 
 
-def _stack_forward_dispatch(params, x, cfg, ax, *, enc_out=None):
+def _stack_forward_dispatch(params, x, cfg, ax, *, enc_out=None, loads=None):
     if cfg.family == "audio":
         # per-layer cross-attention: K/V from the shared encoder output
         # with each decoder layer's own projections
@@ -475,7 +553,7 @@ def _stack_forward_dispatch(params, x, cfg, ax, *, enc_out=None):
             x, aux = _apply_block(p, "attn", x, cfg, ax, enc_kv=kv,
                                   use_rope=False, aux_acc=aux)
         return x, aux
-    return _stack_forward(params, x, cfg, ax)
+    return _stack_forward(params, x, cfg, ax, loads=loads)
 
 
 def _head(params):
@@ -487,9 +565,10 @@ def forward_logits(params, batch, cfg: ModelConfig, ax: MeshAxes):
     return vp_logits(h, _head(params), ax, cfg.vocab), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, ax: MeshAxes):
-    """Mean next-token CE (+ MoE aux).  batch['labels'] aligned to tokens."""
-    h, aux = forward_hidden(params, batch, cfg, ax)
+def loss_fn(params, batch, cfg: ModelConfig, ax: MeshAxes, *, loads=None):
+    """Mean next-token CE (+ MoE aux).  batch['labels'] aligned to tokens.
+    ``loads`` as ``_stack_forward``."""
+    h, aux = forward_hidden(params, batch, cfg, ax, loads=loads)
     labels = batch["labels"]
     if h.shape[1] != labels.shape[1]:      # vlm: drop patch positions
         h = h[:, -labels.shape[1]:]
@@ -502,8 +581,15 @@ def loss_fn(params, batch, cfg: ModelConfig, ax: MeshAxes):
 # serving: prefill + decode
 # ===========================================================================
 
+def _no_decode(cfg: ModelConfig) -> None:
+    if cfg.is_mla or cfg.first_k_dense:
+        raise NotImplementedError(f"{cfg.name}: no decode path for latent "
+                                  "attention or leading dense layers")
+
+
 def init_caches(params, cfg: ModelConfig, B: int, ctx: int, ax: MeshAxes):
     """Per-layer decode state, on the device of ``params``."""
+    _no_decode(cfg)
     dev = params["embed"].device
     caches = []
     for k in cfg.block_kinds():
@@ -522,6 +608,7 @@ def init_caches(params, cfg: ModelConfig, B: int, ctx: int, ax: MeshAxes):
 def _decode_logits(params, token, caches, pos, cfg: ModelConfig,
                    ax: MeshAxes, *, enc_out=None):
     """The decode step up to its logits: (logits (B,1,V), new_caches)."""
+    _no_decode(cfg)
     dtype = cfg.torch_dtype
     kinds, plen, rem = _period(cfg)
     n_full = cfg.n_layers // plen

@@ -39,6 +39,12 @@ host-clock readings (``clock_anchor()``): a profiler event list and the
 store meet on one clock through the offset between that range and those
 readings.
 
+**Counters** follow the same gate and sessions: ``bump(name, n)`` adds
+to a host count, ``accumulate(name, make)`` adds the tensor ``make()``
+returns to a sum kept on its device (``make`` runs only while the
+profiler runs, and nothing is read back); ``counter(name)`` reads the
+newest session's total, and how many times it was added to.
+
 A ``record_function`` range costs microseconds even with the profiler
 off, and a range opened on a second thread is not recorded, so spans
 are kept here, not in the profiler's timeline.
@@ -55,10 +61,14 @@ import torch.autograd.profiler as _prof
 
 NAMES = ("dispatch.decide", "dispatch.lookup", "dispatch.log",
          "bridge.call", "bridge.upload", "bridge.enqueue", "bridge.wait",
-         "bridge.writeback", "trainer.data_wait", "data.batch")
+         "bridge.writeback", "trainer.data_wait", "data.batch",
+         "moe.dispatch")
 (DISPATCH_DECIDE, DISPATCH_LOOKUP, DISPATCH_LOG, BRIDGE_CALL, BRIDGE_UPLOAD,
  BRIDGE_ENQUEUE, BRIDGE_WAIT, BRIDGE_WRITEBACK, TRAINER_DATA_WAIT,
- DATA_BATCH) = range(len(NAMES))
+ DATA_BATCH, MOE_DISPATCH) = range(len(NAMES))
+# counters: a host count, and a tensor summed on the device
+COUNTERS = ("moe.host_syncs", "moe.pairs_held")
+MOE_HOST_SYNCS, MOE_PAIRS_HELD = range(len(COUNTERS))
 CAP = 1 << 22
 # the profiler range that anchors the store's clock on the profiler's
 CLOCK = "repro_torch.trace.clock"
@@ -81,6 +91,7 @@ class SpanStore:
         self._room = 0              # the rows a decision may find stored
         self._anchor: Optional[Tuple[int, int]] = None
         self._main = threading.main_thread().ident
+        self._counts: Dict[int, list] = {}  # counter: [total, additions]
         self.drops = 0
         self.sessions = 0
 
@@ -123,6 +134,18 @@ class SpanStore:
         rows.extend((1, t0, t1, tid, seq, 2, t2, t3, tid, seq,
                      0, t0, end, tid, seq))
 
+    def add_count(self, name: int, value) -> None:
+        """Add ``value`` (a number or a tensor) to counter ``name``."""
+        if self.off:
+            self._begin()
+        with self._lock:
+            c = self._counts.get(name)
+            if c is None:
+                self._counts[name] = [value, 1]
+            else:
+                c[0] = c[0] + value
+                c[1] += 1
+
     def _drop(self, n: int) -> None:
         with self._lock:
             self.drops += n
@@ -137,6 +160,7 @@ class SpanStore:
             self._rows = []
             self._room = 5 * (CAP - 3)
             self._anchor = None
+            self._counts = {}
             self.drops = 0
             self.sessions += 1
             self.off = False            # last: the new session is in place
@@ -213,6 +237,19 @@ class SpanStore:
             return {"stored": len(self._rows) // 5, "drops": self.drops,
                     "sessions": self.sessions}
 
+    def counter(self, name: str) -> Optional[dict]:
+        """The newest session's counter ``name``: ``total`` (an int, or
+        the summed tensor as a numpy array) and ``additions``; None where
+        nothing was added."""
+        with self._lock:
+            c = self._counts.get(COUNTERS.index(name))
+        if c is None:
+            return None
+        total = c[0]
+        if not isinstance(total, int):
+            total = total.detach().cpu().numpy()
+        return {"total": total, "additions": c[1]}
+
     def clock_anchor(self) -> Optional[Tuple[int, int]]:
         """The host clock (``perf_counter_ns``) just before and just after
         the newest session's ``CLOCK`` range; None before it has one.
@@ -227,6 +264,7 @@ class SpanStore:
             self.off = True
             self._rows = []
             self._anchor = None
+            self._counts = {}
             self.drops = 0
             self.sessions = 0
 
@@ -255,8 +293,26 @@ class span:
         return False
 
 
+def bump(name: int, n: int = 1) -> None:
+    """Add ``n`` to host counter ``name`` while a profiler session runs."""
+    if _prof._is_profiler_enabled:
+        STORE.add_count(name, n)
+    else:
+        STORE.off = True
+
+
+def accumulate(name: int, make) -> None:
+    """Add the tensor ``make()`` to counter ``name``'s sum on its device
+    while a profiler session runs (``make`` is not called otherwise)."""
+    if _prof._is_profiler_enabled:
+        STORE.add_count(name, make())
+    else:
+        STORE.off = True
+
+
 STORE = SpanStore()
 spans = STORE.spans
+counter = STORE.counter
 self_ns = STORE.self_ns
 counters = STORE.counters
 clock_anchor = STORE.clock_anchor

@@ -47,7 +47,9 @@ from ..core.context import AxisKind
 from ..models import loss_fn
 from ..models.config import ModelConfig
 from ..models.layers import MeshAxes, data_rank, model_rank, pod_rank
-from ..models.transformer import tree_flatten, tree_leaves
+from ..models.moe import update_router_bias
+from ..models.transformer import (BufferSpec, router_biases, tree_flatten,
+                                  tree_leaves)
 from .optimizer import AdamWConfig, adamw_update, global_norm
 from .schedule import cosine_schedule
 
@@ -255,18 +257,23 @@ def _mean_over(x: torch.Tensor, n: int, group) -> torch.Tensor:
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, ax: MeshAxes,
-                   param_specs, *, bucketed: bool = False):
+                   param_specs, *, bucketed: bool = False, loads=None):
     """(loss, synchronised gradients) of this rank's shards on this
     rank's rows of the batch: autograd through the dispatched
-    collectives, then :func:`sync_grads`."""
+    collectives, then :func:`sync_grads`.  Buffers (a ``BufferSpec``)
+    get a zero gradient; ``loads`` as ``loss_fn``'s."""
     flat_p, rebuild = tree_flatten(params)
-    leaves = [p.detach().requires_grad_() for p in flat_p]
-    loss = loss_fn(rebuild(leaves), batch, cfg, ax)
+    leaves = [p.detach() if isinstance(s, BufferSpec)
+              else p.detach().requires_grad_()
+              for p, s in zip(flat_p, spec_leaves(param_specs))]
+    loss = loss_fn(rebuild(leaves), batch, cfg, ax, loads=loads)
     # the loss is replicated over the model axis: 1/tp per rank sums to
     # the one seed of the tp=1 loss (models/layers.py)
-    grads = torch.autograd.grad(
-        loss, leaves, grad_outputs=torch.full_like(loss, 1.0 / ax.tp),
-        allow_unused=True)
+    train = [p for p in leaves if p.requires_grad]
+    got = iter(torch.autograd.grad(
+        loss, train, grad_outputs=torch.full_like(loss, 1.0 / ax.tp),
+        allow_unused=True))
+    grads = [next(got) if p.requires_grad else None for p in leaves]
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat_p, grads)]
     return loss.detach(), sync_grads(rebuild(grads), param_specs, ax,
@@ -300,22 +307,37 @@ def make_train_step(cfg: ModelConfig, ax: MeshAxes, mesh, param_specs,
 
     def local_step(params, opt_state, batch):
         batch = local_batch(batch, cfg, ax, tree_leaves(params)[0].device)
+        loads = [] if cfg.router == "sigmoid" else None
         loss, grads = loss_and_grads(params, batch, cfg, ax, param_specs,
-                                     bucketed=step_cfg.bucketed_grad_sync)
+                                     bucketed=step_cfg.bucketed_grad_sync,
+                                     loads=loads)
         lr_scale = cosine_schedule(opt_state["step"],
                                    step_cfg.total_steps,
                                    step_cfg.warmup_steps)
         gnorm = _norm_of_whole_tree(grads, flat_specs, ax)
         with torch.no_grad():
-            new_p, new_o, metrics = adamw_update(
-                params, grads, opt_state, step_cfg.opt, lr_scale,
-                gnorm=gnorm)
+            # a leaf at a time, each written back before the next is
+            # updated, so that at most one leaf's new copies are alive;
+            # buffers are left as they are
+            flat_g = tree_leaves(grads)
             del grads
-            for old, new in ((params, new_p), (opt_state["m"], new_o["m"]),
-                             (opt_state["v"], new_o["v"])):
-                for a, b in zip(tree_leaves(old), tree_leaves(new)):
-                    a.copy_(b)
+            leaves = zip(tree_leaves(params), tree_leaves(opt_state["m"]),
+                         tree_leaves(opt_state["v"]), flat_specs)
+            for i, (p, m, v, spec) in enumerate(leaves):
+                g, flat_g[i] = flat_g[i], None
+                if isinstance(spec, BufferSpec):
+                    continue
+                new_p, new_o, metrics = adamw_update(
+                    p, g, {"m": m, "v": v, "step": opt_state["step"]},
+                    step_cfg.opt, lr_scale, gnorm=gnorm)
+                del g
+                p.copy_(new_p)
+                m.copy_(new_o["m"])
+                v.copy_(new_o["v"])
             opt_state["step"].copy_(new_o["step"])
+            if loads is not None:
+                update_router_bias(router_biases(params, cfg), loads, cfg,
+                                   batch["tokens"].numel())
         # metrics reduced to replicated scalars
         loss = _mean_over(loss, ax.dp, ax.data_group)
         if ax.pod:

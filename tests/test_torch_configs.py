@@ -67,3 +67,18 @@ def test_serving_config_and_support_equal_the_reference(arch, shape):
 def test_unknown_arch_raises_like_the_reference():
     with pytest.raises(KeyError, match="unknown arch"):
         port.get_config("gpt-2")
+
+
+def test_port_only_arch_resolves_outside_the_reference_pool():
+    """moonlight-16b-a3b, the port's own, resolves by name; the pool the
+    reference shares stays the reference's."""
+    assert port.ARCH_IDS == ref.ARCH_IDS
+    assert "moonlight-16b-a3b" not in port.all_archs()
+    cfg = port.get_config("moonlight-16b-a3b")
+    assert (cfg.n_layers, cfg.first_k_dense, cfg.n_experts, cfg.top_k,
+            cfg.kv_lora_rank, cfg.held_experts) == (27, 1, 64, 6, 512,
+                                                    (0, 64))
+    smoke = port.get_smoke_config("moonlight-16b-a3b")
+    assert smoke.held_experts == (0, 4) and smoke.router == "sigmoid"
+    # the reference's configs keep no field of the DeepSeek-V3 block
+    assert "kv_lora_rank" not in _fields(port.get_config("olmoe-1b-7b"))

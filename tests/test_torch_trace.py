@@ -358,3 +358,56 @@ def test_threads_store_aligned_spans():
             assert got[parent][2] == rid
     assert sorted(trace.spans("dispatch.decide")["id"]) == \
         list(range(threads * reps))
+
+
+# ---------------------------------------------------------------------------
+# the held-expert layer: the moe.dispatch span and its two counters
+# ---------------------------------------------------------------------------
+
+def _moe_step(steps=1):
+    """Train steps of the Moonlight smoke config (two expert layers,
+    remat on) on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+    from repro_torch.collectives.dispatch import reset_dispatcher
+    reset_dispatcher(runtime=PolicyRuntime(tier="jit"))
+    cfg = get_smoke_config("moonlight-16b-a3b").with_overrides(
+        dtype="float32", remat=True)
+    params, specs = init_params(0, cfg, MeshAxes(), device="cpu")
+    step, _ = make_train_step(cfg, MeshAxes(), None, specs,
+                              TrainStepConfig())
+    opt = adamw_init(params)
+    tok = np.random.RandomState(0).randint(0, cfg.vocab, (2, 17))
+    for _ in range(steps):
+        params, opt, _ = step(params, opt, {"tokens": tok[:, :-1],
+                                            "labels": tok[:, 1:]})
+    return cfg
+
+
+def test_expert_layer_records_nothing_with_the_profiler_off():
+    _moe_step()
+    assert trace.counters()["stored"] == 0
+    assert trace.counter("moe.host_syncs") is None
+    assert trace.counter("moe.pairs_held") is None
+
+
+def test_expert_layer_records_its_dispatch_and_counts_under_a_session():
+    with profiled():
+        cfg = _moe_step(steps=2)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    # forward and recompute each read the group sizes once a layer
+    assert len(trace.spans("moe.dispatch")["dur_ns"]) == 2 * 2 * n_moe
+    assert trace.counter("moe.host_syncs") == {"total": 2 * 2 * n_moe,
+                                               "additions": 2 * 2 * n_moe}
+    held = trace.counter("moe.pairs_held")
+    assert held["additions"] == 2 and held["total"].shape == (4,)
+    # each step's pairs on the held experts, counted once a step
+    assert 0 < held["total"].sum() <= 2 * n_moe * 2 * 16 * cfg.top_k
+    # a new session begins with nothing counted
+    _moe_step()
+    with profiled():
+        trace.bump(trace.MOE_HOST_SYNCS)
+    assert trace.counter("moe.host_syncs")["total"] == 1
+    assert trace.counter("moe.pairs_held") is None
