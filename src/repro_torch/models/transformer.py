@@ -77,6 +77,16 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree) -> list:
+    """Each layer's tree of a stacked tree: views from one ``unbind`` of
+    each leaf.  Under autograd the leaf's gradient is then one ``stack``,
+    where ``_layer``'s ``a[i]`` costs a zero-filled gradient the size of
+    the whole stack, and an add of it, at every layer."""
+    leaves, rebuild = tree_flatten(tree)
+    rows = [a.unbind(0) for a in leaves]
+    return [rebuild(layer) for layer in zip(*rows)]
+
+
 # ===========================================================================
 # init
 # ===========================================================================
@@ -446,19 +456,23 @@ def _stack_forward(params, x, cfg: ModelConfig, ax: MeshAxes, *,
     kinds, plen, rem = _period(cfg)
     n_full = len(kinds) // plen
     aux = torch.zeros((), device=x.device)
+    # every stacked leaf taken apart once, outside the checkpoints: the
+    # recompute reads the same views
+    blocks = [_layers(p) for p in params["blocks"]]
+    dense_layers = _layers(params["dense"]) if cfg.first_k_dense else []
 
     def period(x, aux, i: int):
         # the loads are outputs, so that a recompute adds none
         got = []
         for j in range(plen):
-            x, aux = _apply_block(_layer(params["blocks"][j], i), kinds[j],
-                                  x, cfg, ax, use_rope=_use_rope(cfg, j),
+            x, aux = _apply_block(blocks[j][i], kinds[j], x, cfg, ax,
+                                  use_rope=_use_rope(cfg, j),
                                   causal=causal, enc_kv=enc_kv, aux_acc=aux,
                                   loads=got)
         return x, aux, tuple(got)
 
     def dense(x, aux, i: int):
-        return _apply_block(_layer(params["dense"], i), "attn", x, cfg, ax,
+        return _apply_block(dense_layers[i], "attn", x, cfg, ax,
                             causal=causal, aux_acc=aux)
 
     # remat: each period's activations are recomputed in the backward;
@@ -484,7 +498,7 @@ def _stack_forward(params, x, cfg: ModelConfig, ax: MeshAxes, *,
             loads.extend(got)
     for j, p in enumerate(params["tail"]):
         li = n_full * plen + j
-        x, aux = _apply_block(_layer(p, 0), kinds[li], x, cfg, ax,
+        x, aux = _apply_block(_layers(p)[0], kinds[li], x, cfg, ax,
                               use_rope=_use_rope(cfg, li),
                               causal=causal, enc_kv=enc_kv, aux_acc=aux,
                               loads=loads)
@@ -509,10 +523,10 @@ def _encode_audio(params, frames, cfg: ModelConfig, ax: MeshAxes):
     x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
     enc_cfg = dataclasses.replace(cfg, n_experts=0, qk_norm=False,
                                   qkv_bias=False, attention="full")
-    for i in range(cfg.n_enc_layers):
-        x, _ = _apply_block(_layer(params["enc_blocks"], i), "attn", x,
-                            enc_cfg, ax, use_rope=False, causal=False)
-    return apply_norm(cfg.norm, x, _layer(params["enc_norm"], 0))
+    for p in _layers(params["enc_blocks"]):
+        x, _ = _apply_block(p, "attn", x, enc_cfg, ax, use_rope=False,
+                            causal=False)
+    return apply_norm(cfg.norm, x, _layers(params["enc_norm"])[0])
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, ax: MeshAxes, dtype):
@@ -538,7 +552,7 @@ def forward_hidden(params, batch, cfg: ModelConfig, ax: MeshAxes, *,
 
     x, aux = _stack_forward_dispatch(params, x, cfg, ax, enc_out=enc_out,
                                      loads=loads)
-    return apply_norm(cfg.norm, x, _layer(params["final_norm"], 0),
+    return apply_norm(cfg.norm, x, _layers(params["final_norm"])[0],
                       cfg.rms_eps), aux
 
 
@@ -547,8 +561,7 @@ def _stack_forward_dispatch(params, x, cfg, ax, *, enc_out=None, loads=None):
         # per-layer cross-attention: K/V from the shared encoder output
         # with each decoder layer's own projections
         aux = torch.zeros((), device=x.device)
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"][0], i)
+        for p in _layers(params["blocks"][0]):
             kv = att.encode_kv(p["xattn"], enc_out, cfg, ax)
             x, aux = _apply_block(p, "attn", x, cfg, ax, enc_kv=kv,
                                   use_rope=False, aux_acc=aux)
