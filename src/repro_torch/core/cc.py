@@ -13,12 +13,13 @@ below a ``ctypes`` trampoline (~215 ns measured on this container).
 Lowering model
 --------------
 Same artifacts, third consumer: the generator walks the shared CFG
-(:mod:`repro_torch.core.cfg`) and the verifier's region analysis exactly like the
-v2 JIT does, and mirrors its structured reconstruction — post-dominator
-nested ``if``/``else`` regions, natural loops as real ``while (1)`` with
-``continue``/``break``.  Shapes the structured emitter does not model fall
-back to a label-per-block ``goto`` skeleton (C has goto; the Python tier
-needed a dispatcher loop), so no program is ever rejected for shape.
+(:mod:`repro_torch.core.cfg`) and the verifier's region analysis with
+the JIT's structured walk (:mod:`repro_torch.core.emit`) —
+post-dominator nested ``if``/``else`` regions, natural loops as real
+``while (1)`` with ``continue``/``break``.  Shapes the walk does not
+model fall back to a label-per-block ``goto`` skeleton (C has goto; the
+Python tier needed a dispatcher loop), so no program is ever rejected
+for shape.
 
 * Registers are ``uint64_t`` locals; the compiler allocates them.
 * The 512-byte stack is a fixed uninitialized frame on the C stack (the
@@ -78,20 +79,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 from . import faults as _faults
 from . import helpers as H
 from .cfg import CFG
-from .isa import (FP_REG, Insn, STACK_SIZE, alu_base, alu_width, is_alu,
-                  is_imm_form, is_jump_cond, is_load, is_store, jump_base,
-                  mem_size, s64)
+from .emit import CEmitter, StructAbort, u64c
+from .isa import (Insn, STACK_SIZE, alu_base, alu_width, is_alu,
+                  is_imm_form, is_load, is_store, mem_size)
 from .maps import BpfMap
 from .program import Program
 
 M64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
-S64_MIN = -(1 << 63)
 
-_UNSIGNED_CMP = {"jeq": "==", "jne": "!=", "jgt": ">", "jge": ">=",
-                 "jlt": "<", "jle": "<="}
-_SIGNED_CMP = {"jsgt": ">", "jsge": ">=", "jslt": "<", "jsle": "<="}
-_NEG = {"==": "!=", "!=": "==", ">": "<=", ">=": "<", "<": ">=", "<=": ">"}
 _INT_T = {1: "uint8_t", 2: "uint16_t", 4: "uint32_t", 8: "u64"}
 
 
@@ -216,25 +212,8 @@ def _build_module(placeholder_src: str):
 
 
 # ---------------------------------------------------------------------------
-# C code generator (mirrors the v2 JIT's structured reconstruction)
+# C code generator (the JIT's structured walk, C statements)
 # ---------------------------------------------------------------------------
-
-class _StructAbort(Exception):
-    """Structured reconstruction exceeded its budget or hit a shape it
-    does not model; the goto skeleton takes over."""
-
-
-def _u64c(x: int) -> str:
-    return f"0x{x & M64:x}ULL"
-
-
-def _s64c(x: int) -> str:
-    """Render a signed 64-bit constant as portable C."""
-    v = s64(x & M64)
-    if v == S64_MIN:
-        return "(-9223372036854775807LL - 1)"
-    return f"{v}LL" if v >= 0 else f"(-{-v}LL)"
-
 
 def _direct_eligible(m: BpfMap) -> bool:
     """Maps whose helpers compile to direct slot-directory access.
@@ -262,7 +241,7 @@ def _fn_table(prog: Program, vinfo) -> List[Tuple[int, List[Insn], object]]:
     return out
 
 
-class _CGen:
+class _CGen(CEmitter):
     def __init__(self, prog: Program, vinfo, resolved: Dict[str, BpfMap]):
         self.prog = prog
         self.vinfo = vinfo
@@ -274,8 +253,6 @@ class _CGen:
         self.blocks = getattr(self.fninfo, "cfg", None) or CFG(self.insns)
         self.lines: List[str] = []
         self.indent = 1
-        self._loops: List[Tuple[int, int]] = []
-        self._budget = 0
         if len(prog.maps) > 63:
             raise NativeCompileError("more than 63 maps (dirty bitmask)")
         self.map_index = {d.name: i for i, d in enumerate(prog.maps)}
@@ -335,45 +312,32 @@ class _CGen:
         self.dirty_maps = [prog.maps[i].name for i in self.dirty_idx]
 
     # ---- emission plumbing ------------------------------------------------
-    def w(self, line: str) -> None:
-        self.lines.append("    " * self.indent + line)
-
     def _exit_stmt(self) -> str:
         if self.in_sub:
             return "return r0;"
         return ("return PyLong_FromUnsignedLongLong(r0);" if self.pure
                 else "goto done;")
 
+    def emit_exit(self) -> None:
+        self.w(self._exit_stmt())
+
+    def _jump(self, src: int, tgt: int) -> str:
+        return self._exit_stmt() if tgt == CFG.EXIT else f"goto B{tgt};"
+
     # ---- expression helpers ----------------------------------------------
     def _dir(self, mname: str) -> str:
         return f"((u64 *)(uintptr_t)E->D{self.direct_arg[mname]})"
-
-    def _cond(self, insn: Insn) -> Tuple[str, str]:
-        base = jump_base(insn.op)
-        a = f"r{insn.dst}"
-        if base in _SIGNED_CMP:
-            b = _s64c(insn.imm) if is_imm_form(insn.op) \
-                else f"(long long)r{insn.src}"
-            op = _SIGNED_CMP[base]
-            return (f"(long long){a} {op} {b}",
-                    f"(long long){a} {_NEG[op]} {b}")
-        if base in _UNSIGNED_CMP:
-            b = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
-            op = _UNSIGNED_CMP[base]
-            return f"{a} {op} {b}", f"{a} {_NEG[op]} {b}"
-        b = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
-        return f"({a} & {b}) != 0", f"({a} & {b}) == 0"
 
     # ---- per-insn emission ------------------------------------------------
     def emit_body_insn(self, pc: int, insn: Insn) -> None:
         op = insn.op
         w = self.w
         if op == "lddw":
-            w(f"r{insn.dst} = {_u64c(insn.imm)};")
+            w(f"r{insn.dst} = {u64c(insn.imm)};")
             return
         if op == "ldmap":
             idx = [d.name for d in self.prog.maps].index(insn.map_name)
-            w(f"r{insn.dst} = {_u64c((0x7F00 + idx) << 48)};")
+            w(f"r{insn.dst} = {u64c((0x7F00 + idx) << 48)};")
             return
         if op == "call":
             self._emit_call(pc, insn)
@@ -398,7 +362,7 @@ class _CGen:
         d = f"r{insn.dst}"
         w = self.w
         if width == 64:
-            s = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
+            s = u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
             if base == "mov":
                 w(f"{d} = {s};")
             elif base == "neg":
@@ -451,7 +415,7 @@ class _CGen:
         n = mem_size(insn.op)
         t = _INT_T[n]
         self.w(f"{{ {t} _t; memcpy(&_t, (const void *)(uintptr_t)"
-               f"(r{insn.src} + {_u64c(insn.off)}), {n}); "
+               f"(r{insn.src} + {u64c(insn.off)}), {n}); "
                f"r{insn.dst} = _t; }}")
 
     def _emit_store(self, pc: int, insn: Insn) -> None:
@@ -462,13 +426,13 @@ class _CGen:
         n = mem_size(insn.op)
         t = _INT_T[n]
         val = f"r{insn.src}" if insn.op.startswith("stx") \
-            else _u64c(insn.imm & ((1 << (8 * n)) - 1))
+            else u64c(insn.imm & ((1 << (8 * n)) - 1))
         self.w(f"{{ {t} _t = ({t})({val}); memcpy((void *)(uintptr_t)"
-               f"(r{insn.dst} + {_u64c(insn.off)}), &_t, {n}); }}")
+               f"(r{insn.dst} + {u64c(insn.off)}), &_t, {n}); }}")
         # the verifier proved which map this store writes through; flag it
         # so the exit-path callback bumps the content version
         if info[0] not in ("ctx", "stack") and info[1] in self.map_index:
-            self.w(f"E->dirty |= {_u64c(1 << self.map_index[info[1]])};")
+            self.w(f"E->dirty |= {u64c(1 << self.map_index[info[1]])};")
 
     # ---- helper calls -----------------------------------------------------
     def _cb(self, pc: int) -> List[str]:
@@ -552,7 +516,7 @@ class _CGen:
 
     def _direct_map_op(self, hname: str, m: BpfMap) -> List[str]:
         dirp = self._dir(m.name)
-        bit = _u64c(1 << self.map_index[m.name])
+        bit = u64c(1 << self.map_index[m.name])
         mx = m.max_entries
         vs = m.value_size
         if hname == "map_lookup_elem":
@@ -585,150 +549,6 @@ class _CGen:
                 "  } else r0 = r3 / _w; }"]
         raise AssertionError(f"no direct lowering for {hname}")
 
-    # ---- block/terminator emission ---------------------------------------
-    def _block_term(self, bi: int):
-        start, end = self.blocks.ranges[bi]
-        insns = self.insns
-        last = insns[end - 1]
-        body_end = end - 1 if (last.op in ("exit", "ja")
-                               or is_jump_cond(last.op)) else end
-        for pc in range(start, body_end):
-            self.emit_body_insn(pc, insns[pc])
-        if last.op == "exit":
-            return ("exit",)
-        if last.op == "ja":
-            return ("ja", self.blocks.succs[bi][0])
-        if is_jump_cond(last.op):
-            cond, ncond = self._cond(last)
-            t, f = self.blocks.succs[bi]
-            return ("cond", cond, ncond, t, f)
-        return ("fall", bi + 1)
-
-    # ---- structured emission (ports _GenV2.emit_structured) --------------
-    def emit_structured(self) -> None:
-        self._budget = max(4 * self.blocks.n, 64)
-        self._loops = []
-        self._chain(0, CFG.EXIT, 0)
-
-    def _loop_ctl(self, b: int) -> Optional[str]:
-        if not self._loops:
-            return None
-        h, ex = self._loops[-1]
-        if b == h:
-            return "continue;"
-        if b == ex:
-            return "break;"
-        for oh, oex in self._loops[:-1]:
-            if b in (oh, oex):
-                raise _StructAbort  # multi-level break/continue
-        return None
-
-    def _enter_loop(self, b: int, depth: int) -> int:
-        L = self.blocks.loops[b]
-        targets = set(L.exit_targets)
-        if len(targets) != 1:
-            raise _StructAbort
-        ex = targets.pop()
-        self.w("while (1) {")
-        self._loops.append((b, ex))
-        self.indent += 1
-        self._chain(b, None, depth + 1, entering=True)
-        self.indent -= 1
-        self._loops.pop()
-        self.w("}")
-        return ex
-
-    def _chain(self, b: int, end: Optional[int], depth: int,
-               entering: bool = False) -> None:
-        bl = self.blocks
-        while b != end:
-            if b == CFG.EXIT or depth > 40 or self.indent > 50:
-                raise _StructAbort
-            self._budget -= 1
-            if self._budget < 0:
-                raise _StructAbort
-            if not entering:
-                ctl = self._loop_ctl(b)
-                if ctl is not None:
-                    self.w(ctl)
-                    return
-                if b in bl.loops:
-                    if any(h == b for h, _ in self._loops):
-                        raise _StructAbort  # re-entering an active loop
-                    b = self._enter_loop(b, depth)
-                    continue
-            entering = False
-            term = self._block_term(b)
-            kind = term[0]
-            if kind == "exit":
-                self.w(self._exit_stmt())
-                return
-            if kind in ("ja", "fall"):
-                b = term[1]
-                continue
-            _, cond, ncond, t, f = term
-            t_ctl, f_ctl = self._loop_ctl(t), self._loop_ctl(f)
-            if t_ctl or f_ctl:
-                if t_ctl and f_ctl:
-                    self.w(f"if ({cond}) {{ {t_ctl} }}")
-                    self.w(f_ctl)
-                    return
-                if t_ctl:
-                    self.w(f"if ({cond}) {{ {t_ctl} }}")
-                    b = f
-                else:
-                    self.w(f"if ({ncond}) {{ {f_ctl} }}")
-                    b = t
-                continue
-            m = bl.ncpd(t, f)
-            if t == m and f == m:
-                b = m  # conditions are side-effect free: branch is a no-op
-                continue
-            if t == m:
-                self.w(f"if ({ncond}) {{")
-                self._arm(f, m, depth + 1)
-                self.w("}")
-            elif f == m:
-                self.w(f"if ({cond}) {{")
-                self._arm(t, m, depth + 1)
-                self.w("}")
-            else:
-                self.w(f"if ({cond}) {{")
-                self._arm(t, m, depth + 1)
-                self.w("} else {")
-                self._arm(f, m, depth + 1)
-                self.w("}")
-            if m == CFG.EXIT:
-                return  # both arms returned
-            b = m
-
-    def _arm(self, b: int, end: int, depth: int) -> None:
-        self.indent += 1
-        self._chain(b, end, depth)
-        self.indent -= 1
-
-    # ---- goto skeleton (always-correct fallback) -------------------------
-    def emit_goto(self) -> None:
-        """Label-per-block lowering.  C has real ``goto``, so the shapes
-        the structured pass aborts on (multi-exit loops, cross-loop
-        edges, duplication blowups) need no dispatcher here."""
-        def jump(target: int) -> str:
-            return self._exit_stmt() if target == CFG.EXIT \
-                else f"goto B{target};"
-        for bi in range(self.blocks.n):
-            self.lines.append(f"B{bi}: ;")
-            term = self._block_term(bi)
-            kind = term[0]
-            if kind == "exit":
-                self.w(self._exit_stmt())
-            elif kind in ("ja", "fall"):
-                t = term[1] if kind == "ja" else self.blocks.succs[bi][0]
-                self.w(jump(t))
-            else:
-                _, cond, _, t, f = term
-                self.w(f"if ({cond}) {{ {jump(t)} }}")
-                self.w(jump(f))
-
     # ---- whole-function assembly -----------------------------------------
     def _gen_fn_body(self, fn_idx: int) -> Tuple[List[str], bool]:
         """Emit one function's body into fresh lines (structured when the
@@ -741,7 +561,7 @@ class _CGen:
         structured = True
         try:
             self.emit_structured()
-        except _StructAbort:
+        except StructAbort:
             self.lines.clear()
             self.indent = 1
             structured = False
@@ -849,7 +669,7 @@ class _CGen:
         if not self.pure:
             # one machine increment per mutated map — the whole
             # mutation-report path, on success AND on helper failure
-            bumps = [f"    if (E->dirty & {_u64c(1 << idx)}) "
+            bumps = [f"    if (E->dirty & {u64c(1 << idx)}) "
                      f"++*(u64 *)(uintptr_t)V{j};"
                      for j, idx in enumerate(self.dirty_idx)]
             tail += (["done:"] + bumps

@@ -1,23 +1,25 @@
 """Shared control-flow-graph analysis for repro policy bytecode.
 
-One CFG layer serves all four execution tiers:
+One CFG layer serves every consumer in the port:
 
 * the **verifier** classifies back edges (natural vs irreducible) and walks
   natural loops to prove trip bounds,
-* the **host JIT** (v2 structured codegen) reconstructs nested ``if``/
-  ``else``/``while`` regions from the post-dominator tree,
-* **jaxc** lowers each natural loop to one ``lax.fori_loop`` over the
-  loop's block set,
+* the **structured walk** (:mod:`repro_torch.core.emit`) reconstructs
+  nested ``if``/``else``/``while`` regions from the post-dominator tree
+  for the three code generators over it: the host JIT (Python), the
+  native tier (C) and the policy kernel (CUDA C++),
+* **torchc**, the policy kernel's plain PyTorch version, walks its blocks
+  and natural loops,
 * the **interpreter** needs nothing from here at runtime, but the
   verifier-derived step bound that feeds its fuel check is computed from
   this loop nest.
 
 Before this module existed each tier re-derived block structure privately
 (the verifier scanned jumps, the JIT had its own ``_Blocks``/post-dominator
-tree, jaxc leaned on pc ordering).  Loops made that untenable: back-edge
-classification, loop membership and the forward (acyclic) view must agree
-everywhere, or the tiers diverge on exactly the programs where divergence
-is dangerous.
+tree, the in-graph lowering leaned on pc ordering).  Loops made that
+untenable: back-edge classification, loop membership and the forward
+(acyclic) view must agree everywhere, or the tiers diverge on exactly the
+programs where divergence is dangerous.
 
 Graph model
 -----------

@@ -72,8 +72,9 @@ region facts and loop bounds):
   cannot);
 * one ``__device__`` function per program function, main and every
   ``call_fn`` callee (a fresh zeroed frame each, on its route), emitted
-  as structured ``if``/``while`` regions where the post-dominator shape
-  allows and as a label-per-block ``goto`` skeleton otherwise;
+  by the host tiers' walk (:mod:`repro_torch.core.emit`) as structured
+  ``if``/``while`` regions where the post-dominator shape allows and as
+  a label-per-block ``goto`` skeleton otherwise;
 * the kernels (one thread, or one warp) and their ``extern "C"``
   launchers, which return ``cudaGetLastError()``, over u64 words and,
   for programs without an ``lru_hash`` map (the pair tier's rule), over
@@ -126,16 +127,15 @@ from ..device import DeviceError, nvcc_path
 from . import helpers as H
 from . import torchc
 from .cfg import CFG
+from .emit import CEmitter, StructAbort, u64c
 from .isa import (STACK_SIZE, Insn, alu_base, alu_width, is_alu,
-                  is_imm_form, is_jump_cond, is_load, is_store, jump_base,
-                  mem_size, s64)
+                  is_imm_form, is_load, is_store, mem_size)
 from .maps import device_shape
 from .program import Program
 from .verifier import verify_with_info
 
 M64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
-S64_MIN = -(1 << 63)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -144,10 +144,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
-_UNSIGNED_CMP = {"jeq": "==", "jne": "!=", "jgt": ">", "jge": ">=",
-                 "jlt": "<", "jle": "<="}
-_SIGNED_CMP = {"jsgt": ">", "jsge": ">=", "jslt": "<", "jsle": "<="}
-_NEG = {"==": "!=", "!=": "==", ">": "<=", ">=": "<", "<": ">=", "<=": ">"}
 _ALU_SYM = {"add": "+", "sub": "-", "mul": "*", "and": "&", "or": "|",
             "xor": "^"}
 
@@ -155,17 +151,6 @@ _ALU_SYM = {"add": "+", "sub": "-", "mul": "*", "and": "&", "or": "|",
 class CudacError(Exception):
     """A policy cannot lower to the cuda tier, a kernel failed to build,
     or a launch failed."""
-
-
-def _u64c(x: int) -> str:
-    return f"0x{x & M64:x}ULL"
-
-
-def _s64c(x: int) -> str:
-    v = s64(x & M64)
-    if v == S64_MIN:
-        return "(-9223372036854775807LL - 1)"
-    return f"{v}LL" if v >= 0 else f"(-{-v}LL)"
 
 
 def _slot(word: int) -> str:
@@ -180,7 +165,7 @@ def _slot_ld(byte: int, n: int) -> str:
     w, sh = _slot(byte >> 3), (byte & 7) * 8
     if n >= 8:
         return w
-    return f"(({w} >> {sh}) & {_u64c((1 << (8 * n)) - 1)})"
+    return f"(({w} >> {sh}) & {u64c((1 << (8 * n)) - 1)})"
 
 
 def _slot_st(byte: int, n: int, val: str) -> str:
@@ -191,8 +176,8 @@ def _slot_st(byte: int, n: int, val: str) -> str:
         return f"{w} = {val};"
     m = (1 << (8 * n)) - 1
     keep = ~(m << sh) & M64
-    return (f"{w} = ({w} & {_u64c(keep)}) | "
-            f"(({val} & {_u64c(m)}) << {sh});")
+    return (f"{w} = ({w} & {u64c(keep)}) | "
+            f"(({val} & {u64c(m)}) << {sh});")
 
 
 def frame_route(fi) -> str:
@@ -236,18 +221,13 @@ def frame_words(fi, prog: Program) -> set:
     return words
 
 
-class _StructAbort(Exception):
-    """The structured emitter met a shape it does not model; the goto
-    skeleton takes over."""
-
-
 # ---------------------------------------------------------------------------
 # code generation
 # ---------------------------------------------------------------------------
 
-class _CudaGen:
-    """Emits the program's device functions (structured with a goto
-    fallback, after ``repro.core.cc._CGen``)."""
+class _CudaGen(CEmitter):
+    """Emits the program's device functions: the structured walk of
+    :mod:`repro_torch.core.emit` with its ``goto`` fallback."""
 
     def __init__(self, prog: Program, vinfo, prefix: str,
                  route: Optional[str] = None):
@@ -258,34 +238,14 @@ class _CudaGen:
         self.structured = True
         self.routes = tuple(route or frame_route(fi) for fi in self.fns)
 
-    # ---- emission plumbing ----------------------------------------------
-    def w(self, line: str) -> None:
-        self.lines.append("    " * self.indent + line)
-
-    # ---- expressions -----------------------------------------------------
-    def _cond(self, insn: Insn) -> Tuple[str, str]:
-        base = jump_base(insn.op)
-        a = f"r{insn.dst}"
-        if base in _SIGNED_CMP:
-            b = _s64c(insn.imm) if is_imm_form(insn.op) \
-                else f"(long long)r{insn.src}"
-            op = _SIGNED_CMP[base]
-            return (f"(long long){a} {op} {b}",
-                    f"(long long){a} {_NEG[op]} {b}")
-        b = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
-        if base in _UNSIGNED_CMP:
-            op = _UNSIGNED_CMP[base]
-            return f"{a} {op} {b}", f"{a} {_NEG[op]} {b}"
-        return f"({a} & {b}) != 0", f"({a} & {b}) == 0"
-
     # ---- straight-line instructions ---------------------------------------
     def emit_body_insn(self, pc: int, insn: Insn) -> None:
         op = insn.op
         if op == "lddw":
-            self.w(f"r{insn.dst} = {_u64c(insn.imm)};")
+            self.w(f"r{insn.dst} = {u64c(insn.imm)};")
         elif op == "ldmap":
             tag = (16 + self.map_index[insn.map_name]) << 56
-            self.w(f"r{insn.dst} = {_u64c(tag)};")
+            self.w(f"r{insn.dst} = {u64c(tag)};")
         elif op == "call":
             self._emit_call(pc, insn)
         elif op == "call_fn":
@@ -296,7 +256,7 @@ class _CudaGen:
         elif is_load(op):
             info = self.fninfo.mem_info.get(pc)
             n = mem_size(op)
-            addr = f"r{insn.src} + {_u64c(insn.off)}"
+            addr = f"r{insn.src} + {u64c(insn.off)}"
             if info is None:
                 self.w(f"r{insn.dst} = 0; /* unreachable */")
             elif info[0] == "stack" and self.regs:
@@ -309,8 +269,8 @@ class _CudaGen:
             info = self.fninfo.mem_info.get(pc)
             n = mem_size(op)
             val = f"r{insn.src}" if op.startswith("stx") \
-                else _u64c(insn.imm)
-            addr = f"r{insn.dst} + {_u64c(insn.off)}"
+                else u64c(insn.imm)
+            addr = f"r{insn.dst} + {u64c(insn.off)}"
             if info is None:
                 self.w("; /* unreachable store */")
             elif info[0] == "stack" and self.regs:
@@ -326,7 +286,7 @@ class _CudaGen:
         base = alu_base(insn.op)
         d = f"r{insn.dst}"
         if alu_width(insn.op) == 64:
-            s = _u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
+            s = u64c(insn.imm) if is_imm_form(insn.op) else f"r{insn.src}"
             if base == "mov":
                 expr = s
             elif base == "neg":
@@ -413,66 +373,21 @@ class _CudaGen:
         self.w(f"r0 = {call};")
         self.w("r1 = 0; r2 = 0; r3 = 0; r4 = 0; r5 = 0;")
 
-    # ---- blocks ------------------------------------------------------------
-    def _block_term(self, bi: int):
-        start, end = self.blocks.ranges[bi]
-        last = self.insns[end - 1]
-        body_end = end - 1 if (last.op in ("exit", "ja")
-                               or is_jump_cond(last.op)) else end
-        for pc in range(start, body_end):
-            self.emit_body_insn(pc, self.insns[pc])
-        if last.op == "exit":
-            return ("exit",)
-        if last.op == "ja":
-            return ("ja", self.blocks.succs[bi][0])
-        if is_jump_cond(last.op):
-            cond, ncond = self._cond(last)
-            t, f = self.blocks.succs[bi]
-            return ("cond", cond, ncond, t, f)
-        return ("fall", bi + 1)
-
+    # ---- loops and exits -------------------------------------------------
     def _visit(self, h: int) -> str:
         """Header visit count against the proven trip bound."""
         return (f"if (++v{h} > {self.fninfo.loop_bounds[h] + 1}ULL) "
                 "return 0;")
 
-    # ---- structured emission ---------------------------------------------
-    def emit_structured(self) -> None:
-        self._budget = max(4 * self.blocks.n, 64)
-        self._loops: List[Tuple[int, int]] = []
-        self._chain(0, CFG.EXIT, 0)
+    def emit_exit(self) -> None:
+        self.w("return r0;")
 
-    def _loop_ctl(self, b: int) -> Optional[str]:
-        if not self._loops:
-            return None
-        h, ex = self._loops[-1]
-        if b == h:
-            return "continue;"
-        if b == ex:
-            return "break;"
-        for oh, oex in self._loops[:-1]:
-            if b in (oh, oex):
-                raise _StructAbort  # multi-level break/continue
-        return None
-
-    def _enter_loop(self, b: int, depth: int) -> int:
-        L = self.blocks.loops[b]
-        targets = set(L.exit_targets)
-        if len(targets) != 1:
-            raise _StructAbort
-        ex = targets.pop()
-        self.w(f"u64 v{b} = 0;")
-        if self._keeps_rolled(L):
+    def _loop_head(self, h: int) -> None:
+        self.w(f"u64 v{h} = 0;")
+        if self._keeps_rolled(self.blocks.loops[h]):
             self.lines.append("#pragma unroll 1")
-        self.w("while (1) {")
-        self._loops.append((b, ex))
-        self.indent += 1
-        self.w(self._visit(b))
-        self._chain(b, None, depth + 1, entering=True)
-        self.indent -= 1
-        self._loops.pop()
-        self.w("}")
-        return ex
+        self.w(self.LOOP)
+        self.w("    " + self._visit(h))     # first in every iteration
 
     def _keeps_rolled(self, L) -> bool:
         """Whether the loop's body stores through a ctx or map pointer,
@@ -493,104 +408,27 @@ class _CudaGen:
                         return True
         return False
 
-    def _chain(self, b: int, end: Optional[int], depth: int,
-               entering: bool = False) -> None:
-        bl = self.blocks
-        while b != end:
-            if b == CFG.EXIT or depth > 40 or self.indent > 50:
-                raise _StructAbort
-            self._budget -= 1
-            if self._budget < 0:
-                raise _StructAbort
-            if not entering:
-                ctl = self._loop_ctl(b)
-                if ctl is not None:
-                    self.w(ctl)
-                    return
-                if b in bl.loops:
-                    if any(h == b for h, _ in self._loops):
-                        raise _StructAbort  # re-entering an active loop
-                    b = self._enter_loop(b, depth)
-                    continue
-            entering = False
-            term = self._block_term(b)
-            kind = term[0]
-            if kind == "exit":
-                self.w("return r0;")
-                return
-            if kind in ("ja", "fall"):
-                b = term[1]
-                continue
-            _, cond, ncond, t, f = term
-            t_ctl, f_ctl = self._loop_ctl(t), self._loop_ctl(f)
-            if t_ctl or f_ctl:
-                if t_ctl and f_ctl:
-                    self.w(f"if ({cond}) {{ {t_ctl} }}")
-                    self.w(f_ctl)
-                    return
-                if t_ctl:
-                    self.w(f"if ({cond}) {{ {t_ctl} }}")
-                    b = f
-                else:
-                    self.w(f"if ({ncond}) {{ {f_ctl} }}")
-                    b = t
-                continue
-            m = bl.ncpd(t, f)
-            if t == m and f == m:
-                b = m
-                continue
-            if t == m:
-                self.w(f"if ({ncond}) {{")
-                self._arm(f, m, depth + 1)
-                self.w("}")
-            elif f == m:
-                self.w(f"if ({cond}) {{")
-                self._arm(t, m, depth + 1)
-                self.w("}")
-            else:
-                self.w(f"if ({cond}) {{")
-                self._arm(t, m, depth + 1)
-                self.w("} else {")
-                self._arm(f, m, depth + 1)
-                self.w("}")
-            if m == CFG.EXIT:
-                return
-            b = m
-
-    def _arm(self, b: int, end: int, depth: int) -> None:
-        self.indent += 1
-        self._chain(b, end, depth)
-        self.indent -= 1
-
     # ---- goto skeleton -----------------------------------------------------
     def emit_goto(self) -> None:
-        bl = self.blocks
-        for h in sorted(bl.loops):
+        for h in sorted(self.blocks.loops):
             self.w(f"u64 v{h} = 0;")
+        super().emit_goto()
 
-        def jump(src: int, tgt: int) -> str:
-            if tgt == CFG.EXIT:
-                return "return r0;"
-            L = bl.loops.get(tgt)
-            reset = f"v{tgt} = 0; " if L is not None \
-                and src not in L.body else ""
-            return f"{{ {reset}goto B{tgt}; }}"
+    def _goto_block(self, bi: int) -> None:
+        if bi in self.blocks.loops:
+            self.w(self._visit(bi))
 
-        for bi in range(bl.n):
-            self.lines.append(f"B{bi}: ;")
-            if bi in bl.loops:
-                self.w(self._visit(bi))
-            term = self._block_term(bi)
-            kind = term[0]
-            if kind == "exit":
-                self.w("return r0;")
-            elif kind in ("ja", "fall"):
-                t = term[1] if kind == "ja" else bl.succs[bi][0]
-                self.w(jump(bi, t))
-            else:
-                _, cond, _, t, f = term
-                self.w(f"if ({cond}) {jump(bi, t)}")
-                self.w(jump(bi, f))
+    def _jump(self, src: int, tgt: int) -> str:
+        """A jump into a loop from outside it restarts the visit count."""
+        if tgt == CFG.EXIT:
+            return "return r0;"
+        L = self.blocks.loops.get(tgt)
+        reset = f"v{tgt} = 0; " if L is not None \
+            and src not in L.body else ""
+        return f"{{ {reset}goto B{tgt}; }}"
+
+    def _if_jump(self, cond: str, jump: str) -> None:
+        self.w(f"if ({cond}) {jump}")
 
     # ---- whole functions ---------------------------------------------------
     def _fn_body(self, fi: int) -> List[str]:
@@ -602,11 +440,11 @@ class _CudaGen:
         self.indent = 1
         try:
             self.emit_structured()
-        except _StructAbort:
+        except StructAbort:
             self.structured = False
             if self.blocks.loops and self.regs:
                 # a goto loop takes no unroll pragma: keep its frame in
-                # memory, where nvcc cannot follow it (see _enter_loop)
+                # memory, where nvcc cannot follow it (see _loop_head)
                 self.routes = tuple("memory" if i == fi else r
                                     for i, r in enumerate(self.routes))
                 self.regs = False
@@ -646,7 +484,7 @@ class _CudaGen:
                     "    (void)r10;"]
         words = sorted(frame_words(self.fns[fi], self.prog))
         out = [f"    u64 {_slot(w)} = 0;" for w in words]
-        return out + [f"    u64 r10 = {_u64c(torchc._STACK_TAG | STACK_SIZE)};",
+        return out + [f"    u64 r10 = {u64c(torchc._STACK_TAG | STACK_SIZE)};",
                       "    (void)r10;"]
 
 

@@ -5,54 +5,49 @@ program is *verified*, the generated code contains **no runtime safety
 checks** — this is the paper's T1 tension resolved the same way: all cost is
 paid at load time.
 
-Two code generators live here:
+The generator consumes the verifier's per-insn region analysis
+(:func:`repro_torch.core.verifier.verify_with_info`) and exploits every
+load-time guarantee the paper's design pays for:
 
-* **v2 (default)** — the fast path.  It consumes the verifier's per-insn
-  region analysis (:func:`repro_torch.core.verifier.verify_with_info`) and
-  exploits every load-time guarantee the paper's design pays for:
+* *Structured control flow.*  The CFG is forward-only (verified), so
+  basic blocks are reconstructed into nested ``if``/``else`` regions via
+  the post-dominator tree (the walk of :mod:`repro_torch.core.emit`,
+  shared with the native and CUDA generators) — no dispatcher loop, no
+  per-jump block-id scan.  CFGs whose forward jumps cross (rare; random
+  fuzz programs) fall back to a single-pass guard chain, still
+  loop-free; loops the walk does not model, to a block dispatcher.
+* *Ctx scalarization.*  The verifier proves every ctx access hits a
+  fixed field offset, so input fields are read via pre-compiled
+  :class:`struct.Struct` accessors (or one bulk unpack when many fields
+  are touched), output fields live in locals, and modified fields are
+  written back once per exit with a ``pack_into`` per contiguous run.
+* *Stack promotion.*  When no stack pointer escapes to a helper and all
+  stack slots are constant-offset and non-overlapping, the 512-byte
+  frame is never allocated: each slot becomes a scalar local.
+* *Allocation hoisting.*  When a real stack/region table is needed
+  (programs that call map helpers), the buffers come from a per-closure
+  free-list instead of being allocated per call (thread-safe: entries
+  are popped for exclusive use and returned at exit; verified programs
+  never read bytes they did not write this invocation, so buffers need
+  no zeroing).
+* *Inline map fast paths.*  ``map_lookup_elem`` and ``ema_update``
+  against plain array maps compile to direct slot indexing — no handle
+  dict, no method dispatch, no key-bytes copy.  Every other map helper
+  call site is bound to a closure specialized on its (statically known)
+  map, so the handle-indirection dict disappears entirely.
+* *Dead-register elimination.*  Registers the specialized code never
+  reads (ctx/frame pointer copies, map handles made redundant by call
+  specialization) have their pure assignments deleted.
 
-  - *Structured control flow.*  The CFG is forward-only (verified), so
-    basic blocks are reconstructed into nested ``if``/``else`` regions via
-    the post-dominator tree — no dispatcher loop, no per-jump block-id
-    scan.  CFGs whose forward jumps cross (rare; random fuzz programs)
-    fall back to a single-pass guard chain, still loop-free.
-  - *Ctx scalarization.*  The verifier proves every ctx access hits a
-    fixed field offset, so input fields are read via pre-compiled
-    :class:`struct.Struct` accessors (or one bulk unpack when many fields
-    are touched), output fields live in locals, and modified fields are
-    written back once per exit with a ``pack_into`` per contiguous run.
-  - *Stack promotion.*  When no stack pointer escapes to a helper and all
-    stack slots are constant-offset and non-overlapping, the 512-byte
-    frame is never allocated: each slot becomes a scalar local.
-  - *Allocation hoisting.*  When a real stack/region table is needed
-    (programs that call map helpers), the buffers come from a per-closure
-    free-list instead of being allocated per call (thread-safe: entries
-    are popped for exclusive use and returned at exit; verified programs
-    never read bytes they did not write this invocation, so buffers need
-    no zeroing).
-  - *Inline map fast paths.*  ``map_lookup_elem`` and ``ema_update``
-    against plain array maps compile to direct slot indexing — no handle
-    dict, no method dispatch, no key-bytes copy.  Every other map helper
-    call site is bound to a closure specialized on its (statically known)
-    map, so the handle-indirection dict disappears entirely.
-  - *Dead-register elimination.*  Registers the specialized code never
-    reads (ctx/frame pointer copies, map handles made redundant by call
-    specialization) have their pure assignments deleted.
+The closures keep the reference's ``__bpf_codegen__`` label ``"v2"``.
 
-* **v1** — the original ``while True`` + linear ``if bb == N`` dispatcher
-  over a ``mems`` region table.  Kept as the baseline for the old-vs-new
-  comparison in ``benchmarks/table1_overhead.py`` and as the fallback
-  when no verifier analysis is available.  Its pointer stores bump map
-  content versions through the region table's owner column, so the
-  device bridge's dirty tracking holds on this tier too.
-
-Code generation model (shared)
-------------------------------
+Code generation model
+---------------------
 Values are plain u64 ints.  Pointers are encoded ints: ``region_id << 32 |
 offset`` where ``region_id`` indexes a per-invocation region table
 ``mems`` (region 1 = stack, region 2 = ctx, 3+ = map values returned by
 lookups).  NULL is 0.  The verifier guarantees pointers are only
-dereferenced in-bounds, so loads/stores index ``mems`` directly; in v2,
+dereferenced in-bounds, so loads/stores index ``mems`` directly;
 ctx/stack accesses bypass ``mems`` entirely via the static region info.
 """
 
@@ -64,20 +59,16 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from . import faults as _faults
 from . import helpers as H
-from .cfg import CFG, leaders as _leaders
+from .cfg import CFG
+from .emit import NEG, SIGNED_CMP, UNSIGNED_CMP, StructAbort, \
+    StructuredEmitter
 from .isa import (FP_REG, Insn, STACK_SIZE, alu_base, alu_width, is_alu,
-                  is_imm_form, is_jump_cond, is_load, is_store, jump_base,
-                  mem_size, s64)
+                  is_imm_form, is_load, is_store, jump_base, mem_size, s64)
 from .maps import BpfMap
 from .program import Program
 
 M64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
-
-_UNSIGNED_CMP = {"jeq": "==", "jne": "!=", "jgt": ">", "jge": ">=",
-                 "jlt": "<", "jle": "<="}
-_SIGNED_CMP = {"jsgt": ">", "jsge": ">=", "jslt": "<", "jsle": "<="}
-_NEG = {"==": "!=", "!=": "==", ">": "<=", ">=": "<", "<": ">=", "<=": ">"}
 
 _STRUCT_FMT = {1: "<B", 2: "<H", 4: "<I", 8: "<Q"}
 
@@ -97,143 +88,6 @@ _MEMS_ESCAPE_HIDS = frozenset(
 
 def _sval(expr: str) -> str:
     return f"_s64({expr})"
-
-
-class _RegionTable(list):
-    """v1 region table: a list plus a parallel ``owners`` list mapping
-    each region index to the :class:`BpfMap` it belongs to (``None`` for
-    stack/ctx), so pointer stores can bump the owning map's content
-    version — the same dirty tracking the VM and v2 get from ``Ptr.owner``
-    / the verifier's region facts."""
-    __slots__ = ("owners",)
-
-
-class _Gen:
-    def __init__(self, prog: Program, insns: Optional[List[Insn]] = None):
-        self.prog = prog
-        # the function being generated: main by default, or a subprogram's
-        # body when compiling a call_fn callee
-        self.insns = list(prog.insns) if insns is None else list(insns)
-        self.lines: List[str] = []
-        self.indent = 2
-
-    def w(self, line: str) -> None:
-        self.lines.append("    " * self.indent + line)
-
-    def emit_insn(self, pc: int, insn: Insn, block_of: Dict[int, int]) -> bool:
-        """Emit one insn; return True if the block ends here."""
-        op = insn.op
-        w = self.w
-        if op == "exit":
-            w("return r0")
-            return True
-        if op == "ja":
-            w(f"bb = {block_of[pc + 1 + insn.off]}")
-            w("continue")
-            return True
-        if op == "lddw":
-            w(f"r{insn.dst} = {insn.imm & M64}")
-            return False
-        if op == "ldmap":
-            # map pointer: encoded as negative region: -(map_index+1)
-            w(f"r{insn.dst} = {self._map_token(insn.map_name)}")
-            return False
-        if op == "call":
-            h = H.HELPERS[insn.imm]
-            w(f"r0 = _h_{h.name}(mems, r1, r2, r3, r4, r5)")
-            w("r1 = r2 = r3 = r4 = r5 = 0")
-            return False
-        if op == "call_fn":
-            # bpf-to-bpf call: the callee is a sibling generated function
-            # with its own frame; only scalars cross the boundary
-            sp = self.prog.subprogs[insn.imm]
-            w(f'_fire("call_fn", {sp.name!r})')
-            w(f"r0 = _sub{insn.imm}(r1, r2, r3, r4, r5)")
-            w("r1 = r2 = r3 = r4 = r5 = 0")
-            return False
-        if is_alu(op):
-            self._emit_alu(insn)
-            return False
-        if is_jump_cond(op):
-            base = jump_base(op)
-            a = f"r{insn.dst}"
-            b = str(insn.imm & M64) if is_imm_form(op) else f"r{insn.src}"
-            if base in _UNSIGNED_CMP:
-                cond = f"{a} {_UNSIGNED_CMP[base]} {b}"
-            elif base in _SIGNED_CMP:
-                cond = f"{_sval(a)} {_SIGNED_CMP[base]} {_sval(b)}"
-            else:  # jset
-                cond = f"({a} & {b}) != 0"
-            w(f"bb = {block_of[pc + 1 + insn.off]} if {cond} else {block_of[pc + 1]}")
-            w("continue")
-            return True
-        if is_load(op):
-            n = mem_size(op)
-            w(f"_p = r{insn.src} + {insn.off}")
-            w(f"_m = mems[_p >> 32]; _o = _p & {M32}")
-            w(f"r{insn.dst} = int.from_bytes(_m[_o:_o+{n}], 'little')")
-            return False
-        if is_store(op):
-            n = mem_size(op)
-            val = f"r{insn.src}" if op.startswith("stx") else str(insn.imm & M64)
-            mask = (1 << (8 * n)) - 1
-            w(f"_p = r{insn.dst} + {insn.off}")
-            w(f"_ri = _p >> 32; _m = mems[_ri]; _o = _p & {M32}")
-            w(f"_m[_o:_o+{n}] = (({val}) & {mask}).to_bytes({n}, 'little')")
-            # map-value regions bump the owning map's content version
-            # (device-bridge dirty tracking); stack/ctx owners are None
-            w("_t = _owners[_ri]")
-            w("if _t is not None: _t.touch()")
-            return False
-        raise AssertionError(f"unhandled op {op}")
-
-    def _map_token(self, name: str) -> str:
-        idx = [d.name for d in self.prog.maps].index(name)
-        return f"{(0x7F00 + idx) << 48}"  # sentinel map handle, never deref'd
-
-    def _emit_alu(self, insn: Insn) -> None:
-        base = alu_base(insn.op)
-        width = alu_width(insn.op)
-        mask = M64 if width == 64 else M32
-        d = f"r{insn.dst}"
-        s = str(insn.imm & mask) if is_imm_form(insn.op) else f"r{insn.src}"
-        if width == 32 and not is_imm_form(insn.op):
-            s = f"({s} & {M32})"
-        a = d if width == 64 else f"({d} & {M32})"
-        w = self.w
-        if base == "mov":
-            w(f"{d} = {s}" if width == 64 else f"{d} = {s} & {M32}")
-        elif base == "neg":
-            w(f"{d} = (-{a}) & {mask}")
-        elif base in ("add", "sub", "mul"):
-            sym = {"add": "+", "sub": "-", "mul": "*"}[base]
-            w(f"{d} = ({a} {sym} {s}) & {mask}")
-        elif base == "div":
-            w(f"{d} = ({a} // {s}) & {mask}")
-        elif base == "mod":
-            w(f"{d} = ({a} % {s}) & {mask}")
-        elif base in ("and", "or", "xor"):
-            sym = {"and": "&", "or": "|", "xor": "^"}[base]
-            w(f"{d} = ({a} {sym} {s}) & {mask}")
-        elif base == "lsh":
-            w(f"{d} = ({a} << ({s} & {width - 1})) & {mask}")
-        elif base == "rsh":
-            w(f"{d} = ({a} >> ({s} & {width - 1})) & {mask}")
-        elif base == "arsh":
-            sa = _sval(a) if width == 64 else f"_s32({a})"
-            w(f"{d} = ({sa} >> ({s} & {width - 1})) & {mask}")
-        else:
-            raise AssertionError(base)
-
-
-# ---------------------------------------------------------------------------
-# v2 code generator
-# ---------------------------------------------------------------------------
-
-class _StructAbort(Exception):
-    """Structured reconstruction exceeded its duplication/nesting budget
-    (or hit a shape — multi-exit loop, cross-loop edge — that the
-    structured emitter does not model)."""
 
 
 # ---- call-site specialized helper closures --------------------------------
@@ -377,19 +231,23 @@ _SPECIALIZERS = {
 }
 
 
-class _GenV2(_Gen):
+class _GenV2(StructuredEmitter):
     """Specializing generator driven by the verifier's region analysis."""
 
     def __init__(self, prog: Program, vinfo, resolved_maps: Dict[str, BpfMap],
                  insns: Optional[List[Insn]] = None, is_sub: bool = False):
-        super().__init__(prog, insns)
+        self.prog = prog
+        # the function being generated: main by default, or a subprogram's
+        # body when compiling a call_fn callee
+        self.insns = list(prog.insns) if insns is None else list(insns)
+        self.lines: List[str] = []
+        self.indent = 1
         self.vinfo = vinfo      # main's Verifier, or a callee's FnInfo —
         self.is_sub = is_sub    # both carry cfg/mem_info/call_map
         self.resolved = resolved_maps
         # the verifier already built the shared CFG; reuse it so both
         # tiers agree on block/loop structure by construction
         self.blocks = getattr(vinfo, "cfg", None) or CFG(self.insns)
-        self._loops: List[Tuple[int, int]] = []   # (header, exit) stack
         self.env_extra: Dict[str, object] = {}
         self.ctx_writes: Set[int] = set()
         self.ctx_reads: Set[int] = set()
@@ -487,20 +345,58 @@ class _GenV2(_Gen):
         """Render (condition, negated condition) for a conditional jump."""
         base = jump_base(insn.op)
         a = f"r{insn.dst}"
-        if base in _SIGNED_CMP:
+        if base in SIGNED_CMP:
             if is_imm_form(insn.op):
                 b = str(s64(insn.imm & M64))
             else:
                 b = _sval(f"r{insn.src}")
             a = _sval(a)
-            op = _SIGNED_CMP[base]
-            return f"{a} {op} {b}", f"{a} {_NEG[op]} {b}"
-        if base in _UNSIGNED_CMP:
+            op = SIGNED_CMP[base]
+            return f"{a} {op} {b}", f"{a} {NEG[op]} {b}"
+        if base in UNSIGNED_CMP:
             b = str(insn.imm & M64) if is_imm_form(insn.op) else f"r{insn.src}"
-            op = _UNSIGNED_CMP[base]
-            return f"{a} {op} {b}", f"{a} {_NEG[op]} {b}"
+            op = UNSIGNED_CMP[base]
+            return f"{a} {op} {b}", f"{a} {NEG[op]} {b}"
         b = str(insn.imm & M64) if is_imm_form(insn.op) else f"r{insn.src}"
         return f"({a} & {b}) != 0", f"({a} & {b}) == 0"
+
+    def _map_token(self, name: str) -> str:
+        idx = [d.name for d in self.prog.maps].index(name)
+        return f"{(0x7F00 + idx) << 48}"  # sentinel map handle, never deref'd
+
+    def _emit_alu(self, insn: Insn) -> None:
+        base = alu_base(insn.op)
+        width = alu_width(insn.op)
+        mask = M64 if width == 64 else M32
+        d = f"r{insn.dst}"
+        s = str(insn.imm & mask) if is_imm_form(insn.op) else f"r{insn.src}"
+        if width == 32 and not is_imm_form(insn.op):
+            s = f"({s} & {M32})"
+        a = d if width == 64 else f"({d} & {M32})"
+        w = self.w
+        if base == "mov":
+            w(f"{d} = {s}" if width == 64 else f"{d} = {s} & {M32}")
+        elif base == "neg":
+            w(f"{d} = (-{a}) & {mask}")
+        elif base in ("add", "sub", "mul"):
+            sym = {"add": "+", "sub": "-", "mul": "*"}[base]
+            w(f"{d} = ({a} {sym} {s}) & {mask}")
+        elif base == "div":
+            w(f"{d} = ({a} // {s}) & {mask}")
+        elif base == "mod":
+            w(f"{d} = ({a} % {s}) & {mask}")
+        elif base in ("and", "or", "xor"):
+            sym = {"and": "&", "or": "|", "xor": "^"}[base]
+            w(f"{d} = ({a} {sym} {s}) & {mask}")
+        elif base == "lsh":
+            w(f"{d} = ({a} << ({s} & {width - 1})) & {mask}")
+        elif base == "rsh":
+            w(f"{d} = ({a} >> ({s} & {width - 1})) & {mask}")
+        elif base == "arsh":
+            sa = _sval(a) if width == 64 else f"_s32({a})"
+            w(f"{d} = ({sa} >> ({s} & {width - 1})) & {mask}")
+        else:
+            raise AssertionError(base)
 
     # ---- per-insn emission ----------------------------------------------
     def emit_body_insn(self, pc: int, insn: Insn) -> None:
@@ -698,7 +594,7 @@ class _GenV2(_Gen):
         w(f"r0 = {name}{argtuple}")
 
     # ---- epilogue ---------------------------------------------------------
-    def emit_epilogue_return(self) -> None:
+    def emit_exit(self) -> None:
         w = self.w
         if self.needs_mems:  # implies needs_stack (see _analyze)
             w("_pool.append((stack, mems))")
@@ -709,156 +605,12 @@ class _GenV2(_Gen):
             w(f"_wb{i}(ctx, {run[0] * 8}, {args})")
         w("return r0")
 
-    # ---- block/terminator emission --------------------------------------
-    def _block_term(self, bi: int):
-        """Emit a block's body; return its terminator descriptor."""
-        start, end = self.blocks.ranges[bi]
-        insns = self.insns
-        last = insns[end - 1]
-        body_end = end - 1 if (last.op in ("exit", "ja")
-                               or is_jump_cond(last.op)) else end
-        for pc in range(start, body_end):
-            self.emit_body_insn(pc, insns[pc])
-        if last.op == "exit":
-            return ("exit",)
-        if last.op == "ja":
-            return ("ja", self.blocks.succs[bi][0])
-        if is_jump_cond(last.op):
-            cond, ncond = self._cond(last)
-            t, f = self.blocks.succs[bi]
-            return ("cond", cond, ncond, t, f)
-        return ("fall", bi + 1)
-
-    # structured emission --------------------------------------------------
-    # Natural loops become native Python `while True:` constructs: an edge
-    # back to the innermost active header emits `continue`, an edge to its
-    # (single) exit target emits `break`.  Shapes the emitter does not
-    # model — multi-exit-target loops, edges crossing to an outer loop's
-    # header/exit — raise _StructAbort and fall back to the dispatcher.
-    def emit_structured(self) -> None:
-        self._budget = max(4 * self.blocks.n, 64)
-        self._loops = []
-        self._chain(0, CFG.EXIT, 0)
-
-    def _loop_ctl(self, b: int) -> Optional[str]:
-        """`continue`/`break` if b is the innermost loop's header/exit;
-        abort on a cross-loop edge."""
-        if not self._loops:
-            return None
-        h, ex = self._loops[-1]
-        if b == h:
-            return "continue"
-        if b == ex:
-            return "break"
-        for oh, oex in self._loops[:-1]:
-            if b in (oh, oex):
-                raise _StructAbort  # multi-level break/continue
-        return None
-
-    def _enter_loop(self, b: int, depth: int) -> int:
-        """Emit `while True:` + the loop interior; return the exit block."""
-        L = self.blocks.loops[b]
-        targets = set(L.exit_targets)
-        if len(targets) != 1:
-            raise _StructAbort
-        ex = targets.pop()
-        self.w("while True:")
-        self._loops.append((b, ex))
-        self.indent += 1
-        before = len(self.lines)
-        self._chain(b, None, depth + 1, entering=True)
-        if len(self.lines) == before:
-            self.w("pass")  # pragma: no cover — loops always emit
-        self.indent -= 1
-        self._loops.pop()
-        return ex
-
-    def _chain(self, b: int, end: int, depth: int,
-               entering: bool = False) -> None:
-        bl = self.blocks
-        while b != end:
-            if b == CFG.EXIT or depth > 40 or self.indent > 50:
-                raise _StructAbort
-            self._budget -= 1
-            if self._budget < 0:
-                raise _StructAbort
-            if not entering:
-                ctl = self._loop_ctl(b)
-                if ctl is not None:
-                    self.w(ctl)
-                    return
-                if b in bl.loops:
-                    if any(h == b for h, _ in self._loops):
-                        raise _StructAbort  # re-entering an active loop
-                    b = self._enter_loop(b, depth)
-                    continue
-            entering = False
-            term = self._block_term(b)
-            kind = term[0]
-            if kind == "exit":
-                self.emit_epilogue_return()
-                return
-            if kind in ("ja", "fall"):
-                b = term[1]
-                continue
-            _, cond, ncond, t, f = term
-            # conditional edges straight to the loop header/exit emit the
-            # control statement inline — ncpd does not cross back edges
-            t_ctl, f_ctl = self._loop_ctl(t), self._loop_ctl(f)
-            if t_ctl or f_ctl:
-                if t_ctl and f_ctl:
-                    self.w(f"if {cond}:")
-                    self.indent += 1
-                    self.w(t_ctl)
-                    self.indent -= 1
-                    self.w(f_ctl)
-                    return
-                if t_ctl:
-                    self.w(f"if {cond}:")
-                    self.indent += 1
-                    self.w(t_ctl)
-                    self.indent -= 1
-                    b = f
-                else:
-                    self.w(f"if {ncond}:")
-                    self.indent += 1
-                    self.w(f_ctl)
-                    self.indent -= 1
-                    b = t
-                continue
-            m = bl.ncpd(t, f)
-            if t == m and f == m:
-                b = m  # conditions are side-effect free: branch is a no-op
-                continue
-            if t == m:
-                self.w(f"if {ncond}:")
-                self._arm(f, m, depth + 1)
-            elif f == m:
-                self.w(f"if {cond}:")
-                self._arm(t, m, depth + 1)
-            else:
-                self.w(f"if {cond}:")
-                self._arm(t, m, depth + 1)
-                self.w("else:")
-                self._arm(f, m, depth + 1)
-            if m == CFG.EXIT:
-                return  # both arms returned
-            b = m
-
-    def _arm(self, b: int, end: int, depth: int) -> None:
-        self.indent += 1
-        before = len(self.lines)
-        self._chain(b, end, depth)
-        if len(self.lines) == before:
-            self.w("pass")
-        self.indent -= 1
-
     # dispatcher fallback (loopy CFGs) -------------------------------------
     def emit_dispatcher(self) -> None:
-        """v1-style `while True` block dispatcher, still driven by the v2
-        specialized per-insn emitters — the fallback when a CFG *with back
-        edges* resists structured reconstruction (a guard chain is a
-        single forward pass and cannot re-enter earlier blocks)."""
+        """`while True` block dispatcher, driven by the specialized
+        per-insn emitters — the fallback when a CFG *with back edges*
+        resists structured reconstruction (a guard chain is a single
+        forward pass and cannot re-enter earlier blocks)."""
         self.w("bb = 0")
         self.w("while True:")
         self.indent += 1
@@ -868,7 +620,7 @@ class _GenV2(_Gen):
             term = self._block_term(bi)
             kind = term[0]
             if kind == "exit":
-                self.emit_epilogue_return()
+                self.emit_exit()
             else:
                 if kind in ("ja", "fall"):
                     self.w(f"bb = {term[1]}")
@@ -890,7 +642,7 @@ class _GenV2(_Gen):
             term = self._block_term(bi)
             kind = term[0]
             if kind == "exit":
-                self.emit_epilogue_return()
+                self.emit_exit()
             elif kind == "ja":
                 self.w(f"bb = {term[1]}")
             elif kind == "fall":
@@ -965,7 +717,7 @@ def _fix_empty_blocks(lines: List[str]) -> List[str]:
 
 def _helper_env(prog: Program, resolved_maps: Dict[str, BpfMap],
                 printk: Callable[[int], None]) -> Dict[str, object]:
-    """Runtime support bindings shared by the v1 and v2 generators."""
+    """Runtime support bindings of the generated closures."""
     map_by_handle = {(0x7F00 + i) << 48: resolved_maps[d.name]
                      for i, d in enumerate(prog.maps)
                      if d.name in resolved_maps}
@@ -990,10 +742,6 @@ def _helper_env(prog: Program, resolved_maps: Dict[str, BpfMap],
         if v is None:
             return 0
         mems.append(v)
-        # v1's region table tracks owners so pointer stores can touch()
-        owners = getattr(mems, "owners", None)
-        if owners is not None:
-            owners.append(m)
         return (len(mems) - 1) << 32
 
     def _h_map_update_elem(mems, r1, r2, r3, r4, r5) -> int:
@@ -1051,9 +799,6 @@ def _helper_env(prog: Program, resolved_maps: Dict[str, BpfMap],
         if v is None:
             return 0
         mems.append(v)
-        owners = getattr(mems, "owners", None)
-        if owners is not None:
-            owners.append(m)
         return (len(mems) - 1) << 32
 
     def _h_ringbuf_submit(mems, r1, r2, r3, r4, r5) -> int:
@@ -1091,74 +836,6 @@ def _helper_env(prog: Program, resolved_maps: Dict[str, BpfMap],
         "_h_ringbuf_submit": _h_ringbuf_submit,
         "_h_ringbuf_discard": _h_ringbuf_discard,
     }
-
-
-def _emit_v1_fn(g: _Gen, insns: List[Insn], fname: str, is_sub: bool) -> None:
-    """Emit one dispatcher-loop function (main or a call_fn callee)."""
-    leaders = _leaders(insns)
-    block_of: Dict[int, int] = {pc: i for i, pc in enumerate(leaders)}
-
-    g.indent = 0
-    if is_sub:
-        # args arrive in r1..r5; fresh frame, no ctx region (the verifier
-        # rejects ctx access in callees, so region 2 stays a placeholder)
-        g.w(f"def {fname}(r1, r2, r3, r4, r5):")
-        g.indent = 1
-        g.w("r0 = r6 = r7 = r8 = r9 = 0")
-        g.w(f"stack = bytearray({STACK_SIZE})")
-        g.w("mems = _RegionTable([None, stack, None])")
-        g.w("_owners = mems.owners = [None, None, None]")
-    else:
-        g.w(f"def {fname}(ctx):")
-        g.indent = 1
-        g.w("r0 = r2 = r3 = r4 = r5 = r6 = r7 = r8 = r9 = 0")
-        g.w(f"stack = bytearray({STACK_SIZE})")
-        g.w("mems = _RegionTable([None, stack, ctx])")
-        g.w("_owners = mems.owners = [None, None, None]")
-        g.w(f"r1 = {2 << 32}")                  # ctx pointer: region 2
-    g.w(f"r10 = {(1 << 32) | STACK_SIZE}")      # fp: region 1, offset 512
-
-    single_block = len(leaders) == 1
-    if not single_block:
-        g.w("bb = 0")
-        g.w("while True:")
-        g.indent = 2
-
-    for bi, start in enumerate(leaders):
-        end = leaders[bi + 1] if bi + 1 < len(leaders) else len(insns)
-        if not single_block:
-            g.w(f"if bb == {bi}:")
-            g.indent += 1
-        ended = False
-        for pc in range(start, end):
-            ended = g.emit_insn(pc, insns[pc], block_of)
-        if not ended:
-            # fallthrough into next block
-            g.w(f"bb = {bi + 1}")
-            g.w("continue")
-        if not single_block:
-            g.indent -= 1
-
-
-def _compile_v1(prog: Program, resolved_maps: Dict[str, BpfMap],
-                printk: Callable[[int], None]) -> Callable[[bytearray], int]:
-    """The original dispatcher-loop generator (baseline / fallback tier)."""
-    g = _Gen(prog)
-    # callees first, main last — all live in one exec'd module so call_fn
-    # sites resolve _sub{i} through shared globals (any DAG order works)
-    for i, sp in enumerate(prog.subprogs):
-        _emit_v1_fn(g, list(sp.insns), f"_sub{i}", is_sub=True)
-    _emit_v1_fn(g, list(prog.insns), "_run", is_sub=False)
-
-    src = "\n".join(g.lines)
-    env = _helper_env(prog, resolved_maps, printk)
-    env["_RegionTable"] = _RegionTable
-    code = compile(src, f"<bpf-jit:{prog.name}>", "exec")
-    exec(code, env)  # noqa: S102 — generated from verified bytecode
-    fn = env["_run"]
-    fn.__bpf_source__ = src  # for debugging / tests
-    fn.__bpf_codegen__ = "v1"
-    return fn
 
 
 def _build_prologue(g: _GenV2, body: List[str]) -> List[str]:
@@ -1216,11 +893,10 @@ def _compile_fn_v2(prog: Program, insns: List[Insn], fninfo,
     order).
     """
     g = _GenV2(prog, fninfo, resolved_maps, insns=insns, is_sub=is_sub)
-    g.indent = 1
     structured = True
     try:
         g.emit_structured()
-    except _StructAbort:
+    except StructAbort:
         g.lines.clear()
         g.indent = 1
         structured = False
@@ -1276,17 +952,13 @@ def _compile_v2(prog: Program, resolved_maps: Dict[str, BpfMap],
 
 def compile_program(prog: Program, resolved_maps: Dict[str, BpfMap],
                     *, printk: Callable[[int], None] = lambda v: None,
-                    info=None, codegen: str = "v2"
-                    ) -> Callable[[bytearray], int]:
+                    info=None) -> Callable[[bytearray], int]:
     """Compile verified bytecode to a Python closure ``fn(ctx_buf) -> int``.
 
     ``info`` is the :class:`repro_torch.core.verifier.Verifier` produced by
     ``verify_with_info``; when omitted the program is (re-)verified here to
-    recover the region analysis the v2 generator specializes on.
-    ``codegen="v1"`` selects the legacy dispatcher-loop generator.
+    recover the region analysis the generator specializes on.
     """
-    if codegen == "v1":
-        return _compile_v1(prog, resolved_maps, printk)
     if info is None:
         from .verifier import verify_with_info
         info = verify_with_info(prog)

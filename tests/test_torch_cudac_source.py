@@ -25,6 +25,7 @@ import pytest
 
 import torch_samples as samples
 from repro_torch.core import cudac, torchc
+from repro_torch.core.emit import StructAbort
 from repro_torch.core.verifier import verify_with_info
 from repro_torch.core.vm import VM
 from repro_torch.policies import ALL_POLICIES, LOOP_POLICIES
@@ -283,7 +284,7 @@ def test_stack_pointer_never_reaches_a_callee(tmp_path):
 def test_goto_skeleton_matches(pol, tmp_path, monkeypatch):
     """Loops and bpf-to-bpf calls through the goto fallback."""
     def abort(self):
-        raise cudac._StructAbort
+        raise StructAbort
     monkeypatch.setattr(cudac._CudaGen, "emit_structured", abort)
     prog = pol.program
     src = cudac.emit_source(prog, verify_with_info(prog))

@@ -471,13 +471,15 @@ def test_load_bundle_atomic_under_mid_bundle_compile_fault():
 
 
 # ---------------------------------------------------------------------------
-# JIT v1 region-table version tracking (the PR-5 gap)
+# JIT map-pointer stores and version tracking
 # ---------------------------------------------------------------------------
 
 def test_v1_pointer_store_bumps_map_version():
+    """A store through a looked-up map value pointer bumps the map's
+    content version on every call of the host JIT's closure."""
     from repro_torch.core.jit import compile_program
 
-    vmap = map_decl("v1m", kind="array", value_size=16, max_entries=4)
+    vmap = map_decl("pm", kind="array", value_size=16, max_entries=4)
 
     @policy(section="tuner", maps=[vmap])
     def bump(ctx):
@@ -488,12 +490,12 @@ def test_v1_pointer_store_bumps_map_version():
         return 0
 
     reg = MapRegistry()
-    m = reg.create("v1m", "array", key_size=4, value_size=16,
+    m = reg.create("pm", "array", key_size=4, value_size=16,
                    max_entries=4)
-    fn = compile_program(bump.program, {"v1m": m}, codegen="v1")
+    fn = compile_program(bump.program, {"pm": m})
     v0 = m.version
     assert fn(make_ctx("tuner").buf) == 0
-    assert m.version > v0                    # pointer store touched owner
+    assert m.version > v0                    # pointer store touched the map
     assert m.lookup_u64(0) == 1
     # device bridges key upload skipping on version: a second store
     # must bump again (no plateau)

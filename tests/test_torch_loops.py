@@ -1,11 +1,11 @@
 """Bounded loops end-to-end on the port (the reference's
 ``tests/test_loops.py`` run on ``repro_torch``): shared CFG, verifier
-bound proofs, frontend loop bytecode, VM fuel, JIT v1/v2 loop codegen,
+bound proofs, frontend loop bytecode, VM fuel, the JIT's loop codegen,
 native loop code, and the policy kernel's loops.
 
 The differential property test generates random verified bounded-loop
 programs (seeded, no hypothesis dependency) and asserts identical results
-and ctx/map state across interpreter, JIT v1, JIT v2, native and the
+and ctx/map state across interpreter, JIT, native and the
 ``torch`` tier (the plain version of the policy kernel), with the
 reference's own interpreter joining each comparison (``torch_ref``).
 The reference's in-graph legs (jaxc, pallas, pallas32) become ``torch``
@@ -638,15 +638,11 @@ def card():
         pytest.skip("needs nvcc")
 
 
-def _runtime_leg(rt, prog, ctx_kw, v1=False):
-    """Load ``prog`` on ``rt``, seed its maps, run one call (with ``v1``,
-    of the v1 closure over the runtime's maps): (ret, ctx, every map's
-    slot-0 words)."""
+def _runtime_leg(rt, prog, ctx_kw):
+    """Load ``prog`` on ``rt``, seed its maps, run one call: (ret, ctx,
+    every map's slot-0 words)."""
     fn = rt.load(prog).fn
     _seed_maps(rt)
-    if v1:
-        resolved = {d.name: rt.maps.get(d.name) for d in prog.maps}
-        fn = compile_program(prog, resolved, codegen="v1")
     ctx = (ref_make_ctx if isinstance(rt, RefRuntime) else make_ctx)(
         "tuner", **ctx_kw)
     ret = fn(ctx.buf)
@@ -663,10 +659,8 @@ def test_loop_policy_identical_across_tiers(pol):
     prog = pol.program
     ctx_kw = dict(msg_size=8 << 20, comm_id=2, n_ranks=8, max_channels=32)
     results = {}
-    for tier in ("interp", "v1", "v2", "torch"):
-        rt = PolicyRuntime(tier={"interp": "interp", "torch": "torch"}.get(
-            tier, "jit"))
-        results[tier] = _runtime_leg(rt, prog, ctx_kw, v1=tier == "v1")
+    for tier in ("interp", "jit", "torch"):
+        results[tier] = _runtime_leg(PolicyRuntime(tier=tier), prog, ctx_kw)
     results["reference interp"] = _runtime_leg(
         RefRuntime(use_interpreter=True), torch_ref.program(prog), ctx_kw)
 
@@ -760,9 +754,7 @@ def test_random_bounded_loops_identical_across_tiers(seed):
     buf = make_ctx("tuner", msg_size=1 << 20).buf
     b0 = bytearray(buf)
     want = VM(prog.insns, {}).run(b0)
-    f1 = compile_program(prog, {}, codegen="v1")
     f2 = compile_program(prog, {}, info=vinfo)
-    assert f1(bytearray(buf)) == want
     assert f2(bytearray(buf)) == want
     assert torch_ref.interp(prog, buf) == (want, bytes(b0), {})
     from repro_torch.core.cc import compile_native, have_cc
@@ -1036,8 +1028,7 @@ def _real_loop_all_tiers(seed, card):
                     for t in ("cuda", "cuda32")}
     else:
         builders = {
-            "v1": lambda p, m, v: compile_program(p, m, codegen="v1"),
-            "v2": lambda p, m, v: compile_program(p, m, info=v),
+            "jit": lambda p, m, v: compile_program(p, m, info=v),
             "torch": lambda p, m, v: compile_host(p, m, v, tier="torch"),
         }
         if have_cc():
@@ -1055,7 +1046,7 @@ def _real_loop_all_tiers(seed, card):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_random_real_loop_with_call_and_hash_all_tiers(seed):
-    """interp == v1 == v2 == native == torch == the reference's interp on
+    """interp == jit == native == torch == the reference's interp on
     seeded real-loop programs calling a subroutine and hash-RMWing per
     iteration: return value, ctx writeback, and decoded hash state
     (both value slots, present and absent keys) bit-identical."""

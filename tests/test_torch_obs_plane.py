@@ -334,7 +334,9 @@ def test_rb_writer_tier_differential(tier):
 
 
 def test_rb_writer_v1_v2_codegen_differential():
-    """Both host codegens against the raw VM, same scripted schedule."""
+    """The host JIT and, where the host has a C toolchain, the native
+    tier against the raw VM, same scripted schedule."""
+    from repro_torch.core.cc import compile_native, have_cc
     from repro_torch.core.jit import compile_program
     from repro_torch.core.maps import MapRegistry
     from repro_torch.core.verifier import verify_with_info
@@ -358,10 +360,11 @@ def test_rb_writer_v1_v2_codegen_differential():
         return trace, rb.drain(), rb.drops
 
     want = run(lambda m: VM(progm.insns, m).run)
-    for cg in ("v1", "v2"):
-        got = run(lambda m, cg=cg: compile_program(progm, m, info=vinfo,
-                                                   codegen=cg))
-        assert got == want, cg
+    legs = {"jit": lambda m: compile_program(progm, m, info=vinfo)}
+    if have_cc():
+        legs["native"] = lambda m: compile_native(progm, m, vinfo)
+    for leg, make_fn in legs.items():
+        assert run(make_fn) == want, leg
 
 
 def test_profiler_suite_tier_differential():

@@ -7,13 +7,12 @@ Two harnesses:
 
 * a hypothesis harness generating random *verifiable* straight-line
   programs over the tuner ctx (ALU soup + ctx loads + output stores +
-  branches), asserting interpreter == host JIT (v1 dispatcher-loop and
-  v2 specializing codegen) on random ctx inputs.  The verifier itself is
-  property-tested by construction: anything it accepts must run without
-  a VM fault.
+  branches), asserting interpreter == host JIT on random ctx inputs.
+  The verifier itself is property-tested by construction: anything it
+  accepts must run without a VM fault.
 * a seeded harness (no hypothesis dependency — always collected) running
   every generated program through the FULL tier ladder:
-  interp == v1 == v2 == native == torch == the reference's interp
+  interp == jit == native == torch == the reference's interp
   (return value AND ctx writeback), with the constant pool deliberately
   biased toward 32-bit-boundary values (0, 2**31-1, 2**32-1, 2**32,
   2**64-1, negative-signed encodings).  The reference's in-graph legs
@@ -130,9 +129,7 @@ def _seeded_six_tier(seed, in_graph):
     b = bytearray(buf0)
     results["interp"] = (VM(prog.insns, {}).run(b), bytes(b))
     b = bytearray(buf0)
-    results["v1"] = (compile_program(prog, {}, codegen="v1")(b), bytes(b))
-    b = bytearray(buf0)
-    results["v2"] = (compile_program(prog, {})(b), bytes(b))
+    results["jit"] = (compile_program(prog, {})(b), bytes(b))
     results["reference interp"] = torch_ref.interp(prog, buf0)[:2]
 
     # native: compiled machine code, whenever the host has a toolchain
@@ -161,7 +158,7 @@ def _seeded_six_tier(seed, in_graph):
 
 @pytest.mark.parametrize("seed", range(24))
 def test_seeded_six_tier_differential(seed):
-    """interp == v1 == v2 == native == torch == the reference's interp on
+    """interp == jit == native == torch == the reference's interp on
     >= 20 seeded boundary-biased programs (ret AND ctx writeback), the
     native leg whenever the host has a C toolchain (have_cc)."""
     _seeded_six_tier(seed, ("torch",))
@@ -226,8 +223,7 @@ def _tier_builders(card: bool):
         return {t: lambda p, m, v, t=t: compile_host(p, m, v, tier=t)
                 for t in ("cuda", "cuda32")}
     builders = {
-        "v1": lambda p, m, v: compile_program(p, m, codegen="v1"),
-        "v2": lambda p, m, v: compile_program(p, m, info=v),
+        "jit": lambda p, m, v: compile_program(p, m, info=v),
         "torch": lambda p, m, v: compile_host(p, m, v, tier="torch"),
     }
     if have_cc():
@@ -544,17 +540,14 @@ if HAVE_HYPOTHESIS:
             return
         vm = VM(prog.insns, {})
         fn_v2 = compile_program(prog, {})
-        fn_v1 = compile_program(prog, {}, codegen="v1")
 
         c1 = make_ctx("tuner", **ctx_kwargs)
         c2 = make_ctx("tuner", **ctx_kwargs)
-        c3 = make_ctx("tuner", **ctx_kwargs)
         ref = torch_ref.interp(prog, c1.buf)
         r_vm = vm.run(c1.buf)
         r_v2 = fn_v2(c2.buf)
-        r_v1 = fn_v1(c3.buf)
-        assert r_vm == r_v2 == r_v1 == ref[0]
-        assert c1.buf == c2.buf == c3.buf == ref[1]
+        assert r_vm == r_v2 == ref[0]
+        assert c1.buf == c2.buf == ref[1]
 
 
     @settings(max_examples=200, deadline=None)
