@@ -91,7 +91,15 @@ Phases (any failure exits non-zero and prints no result line):
    bit-exact, its route and grid, and it and ``F.rms_norm`` timed hot
    (one input set) and L2-cold (input sets in turn that exceed the
    L2), beside the smem route on one block a row (the kernel's earlier
-   design); rows without keys exactly 0 at a model's width.  Before the
+   design); rows without keys exactly 0 at a model's width.  Then B5 for
+   training at the two training cells' attention shapes (qwen3-1.7b B 4
+   x 16 heads over 8 x S 2048 x 128; moonlight-16b-a3b B 2 x 16 x S 4096,
+   q/k 192 and v 128): the models' ``_sdpa`` forward and backward timed
+   first, then the forward with the log-sum-exp and the backward (three
+   launches), each output and gradient within two bf16 steps of its plain
+   version, the backward's bits repeated, each timed beside its bound
+   (the open operations at 989 TFLOP/s), the plain versions' time and
+   SDPA's forward and backward (the yardstick).  Before the
    cells, the operand dtypes the reference takes beyond one of float32
    or bfloat16 (mixed, and float16): at the test shapes each kernel
    within its output dtype's tolerance of its plain version, with the
@@ -1839,6 +1847,151 @@ def zero_rows_at_width(dev) -> int:
     return p["B"] * p["H"] * (p["S"] - p["T"])
 
 
+# the training cells' attention (portbench mixes), through B5's forward
+# with the log-sum-exp and its backward
+TRAIN_ATTENTION_CELLS = (
+    ("qwen3-1.7b train", dict(B=4, H=16, KV=8, S=2048, d=128, dv=128)),
+    ("moonlight-16b-a3b train", dict(B=2, H=16, KV=16, S=4096, d=192,
+                                     dv=128)),
+)
+
+
+def attention_train_ops(p: dict) -> tuple:
+    """(forward, backward) operations the causal mask leaves open: 2 (d +
+    dv) a query-key pair forward; the backward's five products, S again,
+    dP, dV, dQ and dK, 2 (3 d + 2 dv)."""
+    pairs = p["B"] * p["H"] * p["S"] * (p["S"] + 1) // 2
+    return (2 * (p["d"] + p["dv"]) * pairs,
+            2 * (3 * p["d"] + 2 * p["dv"]) * pairs)
+
+
+def attention_train_main_path(dev, lib) -> tuple:
+    """At each training cell's attention shape: the models' ``_sdpa``
+    forward and backward (the path training took before B5 had a
+    backward) timed first; then B5's forward with the log-sum-exp and its
+    backward, each held element by element to its plain version and
+    timed beside its bound (the open operations at the dense bf16 rate),
+    the plain versions' host time and SDPA's forward and backward (the
+    library yardstick; the port never calls it).  Table rows and a log
+    record a cell."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import attention as att
+
+    rows, cells = [], []
+    for i, (cell, p) in enumerate(TRAIN_ATTENTION_CELLS):
+        B, H, KV, S, d, dv = (p[k] for k in ("B", "H", "KV", "S", "d", "dv"))
+        g = torch.Generator(device=dev)
+        g.manual_seed(2000 + i)
+        bf = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev, dtype=bf)
+        # the models' layout (B, S, heads, width)
+        q, k, v, do = rnd(B, S, H, d), rnd(B, S, KV, d), rnd(B, S, KV, dv), \
+            rnd(B, S, H, dv)
+        pos = torch.arange(S, device=dev)[None]
+        mask = att.causal_mask(S, pos, pos)
+        kv_map = torch.arange(H, device=dev) // (H // KV)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_step():
+            out = att._sdpa(*leaves, mask, scale=d ** -0.5, kv_map=kv_map)
+            out.backward(do)
+        sdpa_ms = timed_ms(lib, sdpa_step)[0]
+        for t in leaves:
+            t.grad = None
+        torch.cuda.empty_cache()
+        # B5's operands: heads flattened, kv heads unexpanded
+        bq, bk, bv, bdo = (t.transpose(1, 2).reshape(-1, S, t.shape[-1])
+                           .contiguous() for t in (q, k, v, do))
+        G = H // KV
+        fa.KERNEL.launches = 0
+        o, lse = fa.flash_attention_cuda(bq, bk, bv, group=G, with_lse=True)
+        grads = fa.flash_attention_bwd_cuda(bq, bk, bv, o, bdo, lse, group=G)
+        torch.cuda.synchronize()
+        launches = fa.KERNEL.launches
+        check(launches == 3, f"attention [{cell}]: {launches} launches for "
+              "a forward and a backward, the design states 1 + 2")
+        kx, vx = (t.repeat_interleave(G, dim=0) for t in (bk, bv))
+        want_o, want_lse = fa.flash_attention_plain(bq, kx, vx,
+                                                    with_lse=True)
+        steps = {"out": within_bf16_steps(f"attention [{cell}] out", o,
+                                          want_o)}
+        errs = {"out": max_err(o, want_o)}
+        lse_err = float((lse - want_lse).abs().amax())
+        check(lse_err < 1e-3, f"attention [{cell}]: lse off the plain "
+              f"version's by {lse_err}")
+        del want_o, kx, vx
+        want = fa.flash_attention_bwd_plain(bq, bk, bv, o, bdo, lse, group=G)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+            steps[name] = within_bf16_steps(f"attention [{cell}] {name}",
+                                            a, b)
+            errs[name] = max_err(a, b)
+        again = fa.flash_attention_bwd_cuda(bq, bk, bv, o, bdo, lse, group=G)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"attention [{cell}]: the backward's bits differ between two "
+              "runs on the same inputs")
+        del want, again
+        fwd_ms = timed_ms(lib, lambda: fa.flash_attention_cuda(
+            bq, bk, bv, group=G, with_lse=True))[0]
+        bwd_ms = timed_ms(lib, lambda: fa.flash_attention_bwd_cuda(
+            bq, bk, bv, o, bdo, lse, group=G))[0]
+
+        def plain_step():
+            kx, vx = (t.repeat_interleave(G, dim=0) for t in (bk, bv))
+            po, plse = fa.flash_attention_plain(bq, kx, vx, with_lse=True)
+            fa.flash_attention_bwd_plain(bq, bk, bv, po, bdo, plse, group=G)
+        p_ms = plain_ms(plain_step)
+        # SDPA on (B, H, S, d), kv heads unexpanded (enable_gqa)
+        lq, lk, lv = (t.transpose(1, 2).detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        ldo = do.transpose(1, 2)
+
+        def lib_step():
+            out = F.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=True, enable_gqa=G > 1)
+            out.backward(ldo)
+        lib_ms = timed_ms(lib, lib_step)[0]
+        f_ops, b_ops = attention_train_ops(p)
+        fwd_bound = f_ops / BF16_OPS_PER_S * 1e3
+        bwd_bound = b_ops / BF16_OPS_PER_S * 1e3
+        for what, ms, bound in (("forward with lse", fwd_ms, fwd_bound),
+                                ("backward", bwd_ms, bwd_bound)):
+            rows.append({"name": f"flash_attention {what}[{cell}]",
+                         "route": "cuda",
+                         "source": MODEL_SOURCES["flash_attention"][0],
+                         "replaces": MODEL_SOURCES["flash_attention"][1]
+                         if what != "backward" else "none",
+                         "launches": 1 if what != "backward" else 2,
+                         "max_abs_err": errs["out"] if what != "backward"
+                         else max(errs[n] for n in ("dq", "dk", "dv")),
+                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+                         "bound_by": "operations", "library_ms": lib_ms})
+        cells.append({"cell": cell, "shape": p, "sdpa_fwd_bwd_ms": sdpa_ms,
+                      "fwd_lse_ms": fwd_ms, "bwd_ms": bwd_ms,
+                      "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+                      "plain_fwd_bwd_ms": p_ms, "sdpa_library_ms": lib_ms,
+                      "lse_max_abs_err": lse_err, "steps": steps,
+                      "max_abs_err": errs,
+                      "launches": launches})
+        log(f"[train attention] {cell} {p}: _sdpa forward + backward "
+            f"{sdpa_ms:.4f} ms (before); B5 forward with lse {fwd_ms:.4f} ms "
+            f"(bound {fwd_bound:.4f}, {100 * fwd_bound / fwd_ms:.1f}%), "
+            f"backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+            f"{100 * bwd_bound / bwd_ms:.1f}%), 3 launches; plain forward + "
+            f"backward {p_ms:.3f} ms; sdpa(is_causal, enable_gqa) forward + "
+            f"backward {lib_ms:.4f} ms (yardstick); worst err/limit "
+            + ", ".join(f"{n} {v['err_over_limit']:.3g}"
+                        for n, v in steps.items())
+            + f"; lse max abs err {lse_err:.3g}; the backward's bits repeat")
+        del q, k, v, do, bq, bk, bv, bdo, o, lse, grads, leaves, lq, lk, lv
+        torch.cuda.empty_cache()
+    return rows, cells
+
+
 # ---------------------------------------------------------------------------
 # phase 11: the host tiers and the observability plane
 # ---------------------------------------------------------------------------
@@ -2577,28 +2730,45 @@ def training_trace(tr) -> dict:
     busy share and the eight largest device ops; the same step's FLOPs
     counted by ``FlopCounterMode`` (phase 14 holds the dry run's
     prediction to them; the counter's host cost lands in the trace's
-    wall time)."""
+    wall time); B5's launches in the step (``FlashAttention.launches`` set
+    to 0 just before it and read just after), held to a forward and its
+    remat recompute, then the backward's two launches, a layer."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.kernels.flash_attention.kernel import kv_splits
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+
+    cfg = tr.cfg
     counter = FlopCounterMode(display=False)
+    group = cfg.n_heads // cfg.n_kv_heads
+    forward = 1 + (kv_splits(TRAIN_BATCH * cfg.n_heads, TRAIN_SEQ,
+                             TRAIN_SEQ, cfg.hd, group) > 1)
+    want = (2 * forward + 2) * cfg.n_layers
 
     def step():
         with counter:
             tr.run(steps=1)
+    FlashAttention.launches = 0
     trace = device_trace(step, 1)
+    launches = FlashAttention.launches
+    check(launches == want, f"{launches} B5 launches in a training step, "
+          f"not {want} ({cfg.n_layers} layers of a forward of {forward} "
+          f"launches, its recompute and the backward's 2)")
     top = sorted(trace["by_name"].items(), key=lambda kv: -kv[1]["us"])[:8]
     return {"busy_share": trace["busy_share"], "wall_ms": trace["wall_us"]
             / 1e3, "busy_ms": trace["busy_us"] / 1e3,
             "events": sum(v["count"] for v in trace["by_name"].values()),
             "top_ms": {k: v["us"] / 1e3 for k, v in top},
-            "flops_counted": counter.get_total_flops()}
+            "flops_counted": counter.get_total_flops(),
+            "attention_launches": launches}
 
 
 def model_flops_per_step(cfg, n_params: int, tokens: int) -> float:
     """6 N T for the weights (the input embedding is a lookup, not a
     product: N leaves it out) plus 12 L H hd S T for the attention
-    scores and their product with v (every key, as the model computes
-    them)."""
+    scores and their product with v (every key, as ``_sdpa`` computes
+    them and B5's FLOP formula counts them; B5 skips the tiles the
+    causal mask closes)."""
     n = n_params - cfg.padded_vocab(1) * cfg.d_model
     return 6.0 * n * tokens + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd \
         * TRAIN_SEQ * tokens
@@ -2808,7 +2978,9 @@ def training_main_path(dev, lib, empty_ms: float, smi: str) -> tuple:
     log(f"[train trace] one step under torch.profiler: {trace['wall_ms']:.1f}"
         f" ms, the device busy {trace['busy_ms']:.1f} ms of it "
         f"({100 * trace['busy_share']:.2f}%), {trace['events']} device "
-        f"events; largest ms: " + "; ".join(
+        f"events, {trace['attention_launches']} of them B5's (a forward, "
+        f"its recompute and the backward's 2 a layer); largest ms: "
+        + "; ".join(
             f"{k[:60]} {v:.1f}" for k, v in trace["top_ms"].items()))
     log(f"[train dp2] 2 gloo ranks, smoke width, dp=2 FSDP on the bf16 "
         f"wire, size_aware on tier cuda ({dp2_s:.1f} s): " + "; ".join(
@@ -2840,10 +3012,12 @@ LAUNCH_COMBOS = (("tinyllama-1.1b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
 LAUNCH_POLICY = "ring_mid_v2"
 LAUNCH_MESHES = (("pod", 256), ("2pod", 512))
 # the dry run of phase 13's step against phase 13's measurements: the
-# matmul FLOPs are the same ATen ops on meta and on the card (0.5% leaves
-# room for nothing but rounding); the working set misses what a CUDA
-# kernel allocates inside itself, which no dispatch mode sees
-# (``_softmax_backward_data`` takes a 4 GiB temp at this config)
+# matmul FLOPs are the same ATen ops on meta and on the card, and
+# attention the same two B5 operators, counted by their FLOP formula
+# (meta tensors take B5's route, as the card does; 0.5% leaves room for
+# nothing but rounding); the working set misses what a CUDA kernel
+# allocates inside itself, which no dispatch mode sees (B5's backward:
+# its (B H, S) f32 row sums)
 PRED_FLOPS_RTOL = 0.005
 PRED_MEM_RTOL = 0.15
 # make_serve_step at full width: qwen3-1.7b, prefill B 1 x S 2048, then
@@ -4124,6 +4298,8 @@ def main() -> int:
                                    for k, v in mixed["routes"].items()))
     model_rows, model_cells = model_main_path(dev, lib)
     table.extend(model_rows)
+    attn_rows, attn_cells = attention_train_main_path(dev, lib)
+    table.extend(attn_rows)
     zero_rows = zero_rows_at_width(dev)
     model_s = time.time() - t0
     log(f"[model] {len(model_rows)} full-width cells through the ops, each "
@@ -4239,6 +4415,7 @@ def main() -> int:
                                 "test_shapes_max_abs_err": small,
                                 "operand_dtypes": mixed,
                                 "cells": model_cells,
+                                "train_attention": attn_cells,
                                 "zero_rows": zero_rows,
                                 "seconds": model_s},
               "host_tiers": {"have_cc": have_cc,

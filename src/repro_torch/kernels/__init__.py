@@ -11,11 +11,14 @@ files and its CUDA source:
   csrc/*.cu — the kernel, CUDA C++ for sm_90a, built with nvcc at first
               use (``_build.py``)
 
-B3 ``fused_rmsnorm``, B4 ``grouped_matmul``, B5 ``flash_attention``.
+B3 ``fused_rmsnorm``, B4 ``grouped_matmul``, B5 ``flash_attention``
+(and ``flash_attention_train``, its differentiable op: B5's forward and
+its hand-written backward).
 """
 
-from .flash_attention.ops import flash_attention
+from .flash_attention.ops import flash_attention, flash_attention_train
 from .grouped_matmul.ops import grouped_matmul
 from .rmsnorm.ops import fused_rmsnorm
 
-__all__ = ["flash_attention", "grouped_matmul", "fused_rmsnorm"]
+__all__ = ["flash_attention", "flash_attention_train", "grouped_matmul",
+           "fused_rmsnorm"]

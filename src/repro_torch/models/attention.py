@@ -10,9 +10,17 @@ The port of ``repro/models/attention.py``.  Tensor layout (per rank):
 When tp > n_kv, each rank keeps ALL kv heads (the standard KV-replication
 scheme for GQA under wide TP) and uses the group its local q heads map to.
 
-Attention runs ``_sdpa``: f32 logits, f32 softmax, P cast to v's dtype
-before P·V, as the reference computes it.  The reference's models call no
-attention kernel (ROADMAP C6), so neither does the port.
+Decode and cross attention run ``_sdpa``: f32 logits, f32 softmax, P
+cast to v's dtype before P·V, as the reference computes it.  Training
+attention (``attention_train``, ``mla_train``) takes B5 instead,
+``kernels.flash_attention_train``: the hand-written forward and backward,
+no S x S tensor in device memory, wherever :func:`fused_route` holds (a
+CUDA device or meta tensors, bfloat16 operands, a causal, sliding-window
+or no mask, widths up to 256); elsewhere, the CPU and the chunked-local
+mask included, ``_sdpa`` as before.  The reference's models call no attention
+kernel (ROADMAP C6); the port's training path calls B5.  Each training
+attention call, forward or recompute, bumps the trace counter
+``attn.kernel`` or ``attn.plain``.
 """
 
 from __future__ import annotations
@@ -21,11 +29,16 @@ from typing import Tuple
 
 import torch
 
+from ..kernels.flash_attention.kernel import MAX_HEAD_DIM
+from ..kernels.flash_attention.ops import flash_attention_train
+from ..obs import trace as _trace
 from .config import ModelConfig
 from .layers import (MeshAxes, apply_rope, col_linear, model_rank, rms_norm,
                      rope_freqs, row_linear)
 
 NEG_INF = -1e30
+# the masks B5 computes itself
+FUSED_MASKS = ("causal", "window", "none")
 
 
 def kv_split(cfg: ModelConfig, ax: MeshAxes) -> bool:
@@ -53,6 +66,18 @@ def _kv_map(cfg: ModelConfig, ax: MeshAxes, device):
     if kv_split(cfg, ax):
         return torch.clamp(gkv - r * kv_loc, 0, kv_loc - 1)
     return gkv
+
+
+def _kv_group(cfg: ModelConfig, ax: MeshAxes):
+    """The query heads each local kv head serves where ``_kv_map`` sends
+    local q head ``j`` to local kv head ``j // group`` (B5's order); None
+    where it is another map (pad heads under wide TP)."""
+    h_loc, kv_loc = _local_heads(cfg, ax)
+    if h_loc % kv_loc:
+        return None
+    group = h_loc // kv_loc
+    m = _kv_map(cfg, ax, "cpu").tolist()
+    return group if m == [j // group for j in range(h_loc)] else None
 
 
 def qkv_project(p, x, cfg: ModelConfig, ax: MeshAxes, positions,
@@ -94,6 +119,31 @@ def _sdpa(q, k, v, mask, *, scale, kv_map):
     return out.reshape(B, S, H, v.shape[-1])
 
 
+def fused_route(q, k, v, mask: str) -> bool:
+    """Whether training attention runs B5 (``flash_attention_train``):
+    q on a CUDA device (or on meta tensors, the dry run's stand-in for the
+    card), q, k and v bfloat16, ``mask`` one of ``FUSED_MASKS``
+    ("chunked" is not), q/k's and v's widths at most ``MAX_HEAD_DIM``.
+    Only what the call observes decides."""
+    return (q.device.type in ("cuda", "meta")
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and mask in FUSED_MASKS
+            and max(q.shape[-1], v.shape[-1]) <= MAX_HEAD_DIM)
+
+
+def _fused(q, k, v, *, causal: bool, window: int, scale: float, group,
+           kv_map):
+    """B5 on the model's layout: q (B, S, h, d), k (B, S, kv, d), v (B, S,
+    kv, dv), local q head ``j`` reading kv head ``j // group`` (k and v
+    first taken by ``kv_map`` where ``group`` is None).  (B, S, h, dv)."""
+    if group is None:
+        k, v = k.index_select(2, kv_map), v.index_select(2, kv_map)
+    out = flash_attention_train(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, scale=scale)
+    return out.transpose(1, 2)
+
+
 def causal_mask(S: int, positions, kv_positions, *, window: int = 0):
     """(B|1, S, T) boolean mask; window > 0 = sliding window."""
     pq = positions[..., :, None]          # (B|1, S, 1)
@@ -114,12 +164,27 @@ def attention_train(p, x, cfg: ModelConfig, ax: MeshAxes, *,
     B, S, D = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     q, k, v = qkv_project(p, x, cfg, ax, positions[0], use_rope=use_rope)
-    if causal:
-        mask = causal_mask(S, positions, positions, window=_window(cfg))
+    window = _window(cfg) if causal else 0
+    if not causal:
+        kind = "none"
+    elif cfg.attention == "chunked":
+        kind = "chunked"
     else:
-        mask = torch.ones((1, S, S), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5,
-                kv_map=_kv_map(cfg, ax, x.device))
+        kind = "window" if window else "causal"
+    if fused_route(q, k, v, kind):
+        _trace.bump(_trace.ATTN_KERNEL)
+        group = _kv_group(cfg, ax)
+        out = _fused(q, k, v, causal=causal, window=window,
+                     scale=cfg.hd ** -0.5, group=group,
+                     kv_map=None if group else _kv_map(cfg, ax, x.device))
+    else:
+        _trace.bump(_trace.ATTN_PLAIN)
+        if causal:
+            mask = causal_mask(S, positions, positions, window=window)
+        else:
+            mask = torch.ones((1, S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5,
+                    kv_map=_kv_map(cfg, ax, x.device))
     out = out.reshape(B, S, -1)
     return row_linear(out, p["wo"], ax, fsdp_dim=1)
 
@@ -149,8 +214,14 @@ def mla_train(p, x, cfg: ModelConfig, ax: MeshAxes):
     q = torch.cat([q_nope, apply_rope(q_pe, ang)], dim=-1)
     k_pe = apply_rope(k_pe[:, :, None, :], ang).expand(B, S, H, dr)
     k = torch.cat([k_nope, k_pe], dim=-1)
-    mask = causal_mask(S, positions, positions)
-    out = _sdpa(q, k, v, mask, scale=(dn + dr) ** -0.5, kv_map=None)
+    if fused_route(q, k, v, "causal"):
+        _trace.bump(_trace.ATTN_KERNEL)
+        out = _fused(q, k, v, causal=True, window=0,
+                     scale=(dn + dr) ** -0.5, group=1, kv_map=None)
+    else:
+        _trace.bump(_trace.ATTN_PLAIN)
+        mask = causal_mask(S, positions, positions)
+        out = _sdpa(q, k, v, mask, scale=(dn + dr) ** -0.5, kv_map=None)
     return row_linear(out.reshape(B, S, H * dv), p["wo"], ax, fsdp_dim=1)
 
 

@@ -67,8 +67,8 @@ NAMES = ("dispatch.decide", "dispatch.lookup", "dispatch.log",
  BRIDGE_ENQUEUE, BRIDGE_WAIT, BRIDGE_WRITEBACK, TRAINER_DATA_WAIT,
  DATA_BATCH, MOE_DISPATCH) = range(len(NAMES))
 # counters: a host count, and a tensor summed on the device
-COUNTERS = ("moe.host_syncs", "moe.pairs_held")
-MOE_HOST_SYNCS, MOE_PAIRS_HELD = range(len(COUNTERS))
+COUNTERS = ("moe.host_syncs", "moe.pairs_held", "attn.kernel", "attn.plain")
+MOE_HOST_SYNCS, MOE_PAIRS_HELD, ATTN_KERNEL, ATTN_PLAIN = range(len(COUNTERS))
 CAP = 1 << 22
 # the profiler range that anchors the store's clock on the profiler's
 CLOCK = "repro_torch.trace.clock"

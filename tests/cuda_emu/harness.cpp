@@ -4,7 +4,9 @@
 //   harness rmsnorm f32|bf16|f16 DIR T D RESIDUAL EPS RDTYPE ROUTE WARPS NV
 //           BLOCKS OFFSET
 //   harness gmm     f32|bf16 DIR E C D F ROUTE BLOCKS
-//   harness flash   f32|bf16 DIR BH S T d CAUSAL WINDOW SCALE GROUP NSPLIT VEC
+//   harness flash   f32|bf16 DIR BH S T d DV CAUSAL WINDOW SCALE GROUP NSPLIT VEC
+//                   LSE
+//   harness flash_bwd bf16 DIR BH S T d DV CAUSAL WINDOW SCALE GROUP VEC
 //   harness ptx     mma|ldmatrix|ldmatrix_trans|cvt|ex2|cp_async DIR
 //   harness ptx     wgmma|tma|mbarrier DIR
 //
@@ -21,7 +23,9 @@
 // each in its own namespace (rms, gmm, fla), prepared by the test.
 // flash runs the launcher's kernel for the dtype: float32 the CUDA-core
 // kernel, bfloat16 the tensor-core kernel (with NSPLIT > 1 its split-KV
-// form and then the combine kernel).
+// form and then the combine kernel), v DV wide, and with LSE it writes
+// lse.bin too.  flash_bwd runs the backward's two passes on q, k, v, o,
+// do and lse and writes dq, dk, dv and delta.
 #include "cuda_bf16.h"
 #include "cuda_fp16.h"
 #include "cuda_runtime.h"
@@ -145,16 +149,62 @@ template <class T> int run(char **a) {
             return 4;
         }
         wr("out.bin", o);
+    } else if (k == "flash_bwd") {
+        const int BH = atoi(a[4]), S = atoi(a[5]), T_ = atoi(a[6]);
+        const int d = atoi(a[7]), dv = atoi(a[8]);
+        const int causal = atoi(a[9]), window = atoi(a[10]);
+        const float scale = (float)atof(a[11]);
+        const int group = atoi(a[12]), vec = atoi(a[13]);
+        if constexpr (!std::is_same<T, __nv_bfloat16>::value) return 4;
+        else {
+            const size_t nq = (size_t)BH * S, nk = (size_t)BH / group * T_;
+            auto q = rd<T>("q.bin", nq * d);
+            auto kk = rd<T>("k.bin", nk * d);
+            auto v = rd<T>("v.bin", nk * dv);
+            auto o = rd<T>("o.bin", nq * dv);
+            auto dout = rd<T>("do.bin", nq * dv);
+            auto lse = rd<float>("lse.bin", nq);
+            std::vector<float> delta(nq);
+            std::vector<T> gq(nq * d), gk(nk * d), gv(nk * dv);
+            fla::BwdArgs args{q.data(), kk.data(), v.data(), o.data(),
+                              dout.data(), lse.data(), delta.data(),
+                              gq.data(), gk.data(), gv.data(), S, T_, d, dv,
+                              group, BH / group, causal, window, vec, scale};
+            // the launcher's passes (launch_bwd)
+            fla::with_widths(d, dv, [&](auto dp, auto dvp) {
+                constexpr int DP = decltype(dp)::value;
+                constexpr int DV = decltype(dvp)::value;
+                using TL = fla::BwdTiles<DP, DV>;
+                const unsigned b1 = BH / group * ((S * group + TL::BQ - 1) / TL::BQ);
+                emu::launch(dim3(b1), 128, [&] {
+                    fla::attn_bwd_dq_kernel<DP, DV>(args);
+                });
+                const unsigned b2 =
+                    BH / group * ((T_ + TL::BKV - 1) / TL::BKV) * TL::CS;
+                emu::launch(dim3(b2), 128, [&] {
+                    fla::attn_bwd_dkv_kernel<DP, DV>(args);
+                });
+                return 0;
+            });
+            wr("dq.bin", gq);
+            wr("dk.bin", gk);
+            wr("dv.bin", gv);
+            wr("delta.bin", delta);
+        }
     } else {
         const int BH = atoi(a[4]), S = atoi(a[5]), T_ = atoi(a[6]), d = atoi(a[7]);
-        const int causal = atoi(a[8]), window = atoi(a[9]);
-        const float scale = (float)atof(a[10]);
-        const int group = atoi(a[11]), nsplit = atoi(a[12]), vec = atoi(a[13]);
+        const int dv = atoi(a[8]);
+        const int causal = atoi(a[9]), window = atoi(a[10]);
+        const float scale = (float)atof(a[11]);
+        const int group = atoi(a[12]), nsplit = atoi(a[13]), vec = atoi(a[14]);
+        const int want_lse = atoi(a[15]);
         auto q = rd<T>("q.bin", (size_t)BH * S * d);
         auto kk = rd<T>("k.bin", (size_t)BH / group * T_ * d);
-        auto v = rd<T>("v.bin", (size_t)BH / group * T_ * d);
-        std::vector<T> o((size_t)BH * S * d);
+        auto v = rd<T>("v.bin", (size_t)BH / group * T_ * dv);
+        std::vector<T> o((size_t)BH * S * dv);
+        std::vector<float> lse((size_t)BH * S);
         if constexpr (std::is_same<T, float>::value) {
+            if (dv != d || want_lse) return 4;
             const unsigned blocks = BH * ((S + 63) / 64);
             auto go = [&](auto nj) {
                 constexpr int NJ = decltype(nj)::value;
@@ -174,44 +224,44 @@ template <class T> int run(char **a) {
             const int n_rows = BH * S;
             std::vector<float> pm((size_t)nsplit * n_rows),
                 pl((size_t)nsplit * n_rows),
-                pacc((size_t)nsplit * n_rows * d);
+                pacc((size_t)nsplit * n_rows * dv);
+            float *lp = want_lse ? lse.data() : nullptr;
             fla::AttnArgs args{q.data(), kk.data(), v.data(), o.data(),
-                               pm.data(), pl.data(), pacc.data(), S, T_, d,
-                               group, BH / group, nsplit, causal, window,
-                               vec, scale};
-            auto tiles = [&](auto dp, auto mt, auto wk) {
+                               pm.data(), pl.data(), pacc.data(), lp, S, T_,
+                               d, dv, group, BH / group, nsplit, causal,
+                               window, vec, scale};
+            auto tiles = [&](auto dp, auto dvp, auto mt, auto wk) {
                 constexpr int DP = decltype(dp)::value;
+                constexpr int DV = decltype(dvp)::value;
                 constexpr int MT = decltype(mt)::value;
                 constexpr int WK = decltype(wk)::value;
-                constexpr int BQ = fla::Tiles<DP, MT, WK>::BQ;
+                constexpr int BQ = fla::Tiles<DP, DV, MT, WK>::BQ;
                 const unsigned blocks =
                     BH / group * nsplit * ((S * group + BQ - 1) / BQ);
                 emu::launch(dim3(blocks), 128, [&] {
-                    fla::attn_tc_kernel<DP, MT, WK>(args);
+                    fla::attn_tc_kernel<DP, DV, MT, WK>(args);
                 });
             };
-            // the launcher's choice of rows a block (launch_dp)
+            // the launcher's widths (with_widths) and rows a block
+            // (launch_dp)
             using one = std::integral_constant<int, 1>;
-            auto go = [&](auto dp) {
+            fla::with_widths(d, dv, [&](auto dp, auto dvp) {
                 if (S * group <= 16)
-                    tiles(dp, one(), std::integral_constant<int, 4>());
+                    tiles(dp, dvp, one(), std::integral_constant<int, 4>());
                 else if (decltype(dp)::value <= 160 && S * group >= 128)
-                    tiles(dp, std::integral_constant<int, 2>(), one());
+                    tiles(dp, dvp, std::integral_constant<int, 2>(), one());
                 else
-                    tiles(dp, one(), one());
-            };
-            // the launcher's choice of the padded head dim
-            if (d <= 64) go(std::integral_constant<int, 64>());
-            else if (d <= 128) go(std::integral_constant<int, 128>());
-            else if (d <= 160) go(std::integral_constant<int, 160>());
-            else go(std::integral_constant<int, 256>());
+                    tiles(dp, dvp, one(), one());
+                return 0;
+            });
             if (nsplit > 1)
                 emu::launch(dim3(n_rows), 64, [&] {
                     fla::attn_combine_kernel(pm.data(), pl.data(), pacc.data(),
-                                             o.data(), n_rows, S * group,
-                                             group, S, d, nsplit);
+                                             o.data(), lp, n_rows, S * group,
+                                             group, S, dv, nsplit);
                 });
         }
+        if (want_lse) wr("lse.bin", lse);
         wr("out.bin", o);
     }
     return 0;

@@ -299,6 +299,237 @@ def test_flash_attention_split_kv(card, group, S, T, d, window, splits):
 
 
 # ---------------------------------------------------------------------------
+# B5 for training: the forward with the log-sum-exp, the backward
+# ---------------------------------------------------------------------------
+
+# the training cells' head layouts at full shape: Qwen3-1.7B (B 4, 16 q
+# heads over 8 kv heads, S 2048, 128 wide) and Moonlight-16B-A3B's latent
+# attention (B 2, 16 heads, S 4096, q and k 192 wide, v 128)
+TRAIN_CELLS = {"qwen3-1.7b": dict(BH=64, group=2, S=2048, d=128, dv=128),
+               "moonlight-16b-a3b": dict(BH=32, group=1, S=4096, d=192,
+                                         dv=128)}
+# Bits of flash_attention_cuda's output, sha256 of its bfloat16 bytes, as
+# the forward-only kernel gave them before it could write the
+# log-sum-exp (NVIDIA H100 80GB HBM3); the inputs are _digest_inputs',
+# the keys DIGEST_CASES' (BH, S, T, d, group, window).
+FORWARD_DIGESTS = {
+    "(16, 1024, 1024, 128, 2, 0)":
+        "ee758ee064351669ee4cd3dca491ab8632f7515df0a385d80475d73481e0dee4",
+    "(8, 1, 4096, 128, 2, 0)":
+        "0449961dbdad35a38f172279d3ca59a07bfd6fc5161b5cd28ad6d2dcf87d4377",
+    "(4, 512, 512, 256, 1, 200)":
+        "c469ce8e7424513eecf5ecd98dac8b395c6c4f90c163129432bfbdce5e0abaeb",
+    "(8, 384, 384, 160, 4, 0)":
+        "32d29dbbbe1c317456e76d737f534e2781469f0b645acd6cb40c4a9e0ceec081",
+    "(8, 256, 256, 64, 1, 0)":
+        "0af2c4fff007a3984defa447f338a0967b9f2df94a285571a94db78f24fbf396",
+    "(4, 200, 300, 96, 2, 64)":
+        "ab9e9f48549b5c1b33c16ef0155a13be89a98cc9358b220495d834d43546e903",
+}
+
+
+def _steps_close(name, got, want):
+    """Every element within 2^-6 |want| + 2^-8 rms(want): the bf16
+    rounding of both outputs (2^-9 relative each) and f32 sums taken in
+    another order, with room for the kernel's hi and lo halves of P and
+    dS (about 16 bits) and its ex2, and for the elements near 0, where
+    the sums cancel (phase 10's limit for the full-width cells)."""
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    limit = 2.0 ** -6 * w.abs() + 2.0 ** -8 * rms
+    ratio = float(((g - w).abs() / limit).amax())
+    assert ratio <= 1.0, (name, ratio, rms)
+
+
+def _train_inputs(card, cell, seed):
+    c = TRAIN_CELLS[cell]
+    BH, g, S, d, dv = c["BH"], c["group"], c["S"], c["d"], c["dv"]
+    a = samples.kernel_inputs("flash_attention_grad", seed,
+                              q_shape=(BH, S, d), kv_shape=(BH // g, S, d),
+                              v_shape=(BH // g, S, dv), do_shape=(BH, S, dv))
+    return [_on(a[n], "bfloat16", card) for n in ("q", "k", "v", "do")], g
+
+
+@pytest.mark.parametrize("cell", sorted(TRAIN_CELLS))
+def test_flash_attention_forward_with_lse_at_the_cells(card, cell):
+    """One launch writes the output and lse; the output's bits are the
+    forward-only call's, lse the plain version's to 1e-4 (f32 sums over
+    4096 keys in another order, the kernel's ex2 in units of log2 e)."""
+    (q, k, v, _), g = _train_inputs(card, cell, 61)
+    out, lse = _launched(fa.KERNEL, lambda: fa.flash_attention_cuda(
+        q, k, v, group=g, with_lse=True))
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, group=g))
+    kx, vx = (t.repeat_interleave(g, dim=0) for t in (k, v))
+    want, want_lse = fa.flash_attention_plain(q, kx, vx, with_lse=True)
+    _steps_close("out", out, want)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cell", sorted(TRAIN_CELLS))
+def test_flash_attention_backward_at_the_cells(card, cell):
+    """Two launches; dq, dk and dv against the plain backward on the
+    kernel's own output and lse, element by element (_steps_close)."""
+    (q, k, v, do), g = _train_inputs(card, cell, 62)
+    o, lse = fa.flash_attention_cuda(q, k, v, group=g, with_lse=True)
+    got = _launched(fa.KERNEL, lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, group=g), 2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, group=g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        _steps_close(name, a, b)
+
+
+@pytest.mark.parametrize("BH,S,T,d,dv,group,causal,window", [
+    (8, 256, 256, 64, 64, 2, True, 0),
+    (4, 200, 200, 128, 128, 4, True, 64),
+    (4, 192, 320, 192, 128, 1, True, 0),       # queries offset
+    (4, 160, 160, 256, 256, 2, True, 0),       # dK and dV columns split
+    (4, 320, 128, 160, 160, 1, True, 0),       # rows without keys
+    (6, 130, 130, 72, 40, 3, False, 0),        # no mask, v narrower
+    (2, 96, 96, 36, 36, 1, True, 0),           # rows of 4.5 chunks
+])
+def test_flash_attention_backward_shapes(card, BH, S, T, d, dv, group,
+                                         causal, window):
+    """The backward's tiles, masks and widths against the plain backward;
+    a query row without keys has dq 0."""
+    a = samples.kernel_inputs("flash_attention_grad", 63,
+                              q_shape=(BH, S, d), kv_shape=(BH // group, T, d),
+                              v_shape=(BH // group, T, dv),
+                              do_shape=(BH, S, dv))
+    q, k, v, do = (_on(a[n], "bfloat16", card) for n in ("q", "k", "v", "do"))
+    kw = dict(group=group, causal=causal, window=window)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, bq=S, bk=T,
+                                     **kw)
+    got = _launched(fa.KERNEL, lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, **kw), 2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        _steps_close(name, x, y)
+    if causal and S > T:
+        assert torch.equal(got[0][:, :S - T], torch.zeros_like(
+            got[0][:, :S - T]))
+
+
+def test_flash_attention_backward_repeats_its_bits(card):
+    """No float atomics: the same inputs give the same dq, dk and dv bits
+    twice, at Qwen3's layout."""
+    (q, k, v, do), g = _train_inputs(card, "qwen3-1.7b", 64)
+    o, lse = fa.flash_attention_cuda(q, k, v, group=g, with_lse=True)
+    one = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, group=g)
+    two = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, group=g)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
+def _digest_inputs(card, case):
+    BH, S, T, d, group, window = case
+    a = samples.kernel_inputs("flash_attention", 70 + S % 7,
+                              q_shape=(BH, S, d), kv_shape=(BH // group, T, d))
+    return [_on(a[n], "bfloat16", card) for n in "qkv"], group, window
+
+
+DIGEST_CASES = ((16, 1024, 1024, 128, 2, 0), (8, 1, 4096, 128, 2, 0),
+                (4, 512, 512, 256, 1, 200), (8, 384, 384, 160, 4, 0),
+                (8, 256, 256, 64, 1, 0), (4, 200, 300, 96, 2, 64))
+
+
+def forward_digests(card) -> dict:
+    """sha256 of flash_attention_cuda's bfloat16 output at each of
+    DIGEST_CASES (split-KV decode, windows, each padded width)."""
+    import hashlib
+    out = {}
+    for case in DIGEST_CASES:
+        (q, k, v), g, w = _digest_inputs(card, case)
+        o = fa.flash_attention_cuda(q, k, v, group=g, window=w,
+                                    bq=case[1], bk=case[2])
+        out[str(case)] = hashlib.sha256(
+            o.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def test_forward_only_calls_keep_their_bits(card):
+    """The forward-only kernel gives the bits it gave before it could
+    write the log-sum-exp (FORWARD_DIGESTS)."""
+    assert forward_digests(card) == FORWARD_DIGESTS
+
+
+def test_flash_attention_train_op_on_the_card(card):
+    """The differentiable op: its forward's one launch and backward's
+    two, counted in FlashAttention.launches; outputs and gradients
+    against the same op on the CPU (the plain versions) on the same bf16
+    inputs; FlopCounterMode counts the same FLOPs on both (the ops'
+    formula: it sees the kernels' launches as one op each)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    a = samples.kernel_inputs("flash_attention_grad", 65,
+                              q_shape=(2, 8, 256, 64),
+                              kv_shape=(2, 4, 256, 64),
+                              v_shape=(2, 4, 256, 64),
+                              do_shape=(2, 8, 256, 64))
+    ins = [torch.from_numpy(a[n]).to(torch.bfloat16) for n in "qkv"]
+    do = torch.from_numpy(a["do"]).to(torch.bfloat16)
+    res, flops = {}, []
+    for dev in ("cpu", card):
+        x = [t.detach().to(dev).requires_grad_() for t in ins]
+        before = FlashAttention.launches
+        with FlopCounterMode(display=False) as counter:
+            out = K.flash_attention_train(*x, window=100)
+            out.backward(do.to(dev))
+        torch.cuda.synchronize()
+        n = FlashAttention.launches - before
+        assert n == (3 if dev == card else 0)
+        res[str(dev)] = [out] + [t.grad for t in x]
+        flops.append(counter.get_total_flops())
+    # 2 (d + dv) a query-key pair forward, twice that backward
+    assert flops == [3 * 2 * 16 * 256 * 256 * 128] * 2
+    for name, g, w in zip(("out", "dq", "dk", "dv"), res[str(card)],
+                          res["cpu"]):
+        _steps_close(name, g.cpu(), w)
+
+
+def test_remat_keeps_no_square_tensor(card):
+    """attention_train under torch.utils.checkpoint at S 4096, 16 heads:
+    the recompute reruns the fused forward (two attn.kernel counts a
+    step) and the step's peak stays under one (16, 4096, 4096) f32
+    tensor above what it holds at the start."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import MeshAxes
+    from repro_torch.obs import trace
+    cfg = get_config("qwen3-1.7b")
+    ax = MeshAxes(dp=1, tp=1)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    D, hd = cfg.d_model, cfg.hd
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g) * 0.02).to(
+            card, torch.bfloat16).requires_grad_()
+    p = {"wq": w(D, cfg.n_heads * hd), "wk": w(D, cfg.n_kv_heads * hd),
+         "wv": w(D, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, D),
+         "q_norm": torch.ones(hd, device=card, dtype=torch.bfloat16),
+         "k_norm": torch.ones(hd, device=card, dtype=torch.bfloat16)}
+    x = (torch.randn(1, 4096, D, generator=g)).to(
+        card, torch.bfloat16).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        y = checkpoint(lambda h: att.attention_train(p, h, cfg, ax), x,
+                       use_reentrant=False)
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+    assert trace.counter("attn.kernel") == {"total": 2, "additions": 2}
+    assert trace.counter("attn.plain") is None
+    square = cfg.n_heads * 4096 * 4096 * 4
+    assert torch.cuda.max_memory_allocated() - base < square
+
+
+# ---------------------------------------------------------------------------
 # the ops on the card
 # ---------------------------------------------------------------------------
 

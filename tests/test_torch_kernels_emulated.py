@@ -84,9 +84,9 @@ def harness(tmp_path_factory):
         assert r.returncode == 0, r.stderr
 
     def run(kernel: str, dtype: torch.dtype, inputs: dict, args,
-            outputs: dict) -> dict:
+            outputs: dict, extra: dict = None) -> dict:
         work = Path(tmp_path_factory.mktemp(kernel))
-        for name, t in inputs.items():
+        for name, t in {**inputs, **(extra or {})}.items():
             arr = t.view(torch.int16) if t.element_size() == 2 else t
             arr.numpy().tofile(work / f"{name}.bin")
         r = subprocess.run([str(exe), kernel, TAG[dtype], str(work),
@@ -426,15 +426,22 @@ def test_grouped_matmul_kernel_code_mixed_dtypes(harness, xdt, wdt):
     _close(got, gmm.grouped_matmul_plain(x, w, bc=C, bf=F, bd=D), xdt)
 
 
-def _flash(harness, q, k, v, *, causal=True, window=0, group=1, nsplit=1):
-    """The launcher's kernel for q's dtype on (BH, S, d) q and
-    (BH / group, T, d) k/v, under the emulation."""
+def _flash(harness, q, k, v, *, causal=True, window=0, group=1, nsplit=1,
+           with_lse=False):
+    """The launcher's kernel for q's dtype on (BH, S, d) q, (BH / group, T,
+    d) k and (BH / group, T, dv) v, under the emulation; with
+    ``with_lse`` the output and the log-sum-exp."""
     BH, S, d = q.shape
-    T = k.shape[1]
+    T, dv = k.shape[1], v.shape[-1]
     scale = float(np.float32(d ** -0.5))
-    return harness("flash", q.dtype, {"q": q, "k": k, "v": v},
-                   (BH, S, T, d, int(causal), window, repr(scale), group,
-                    nsplit, int(d % 8 == 0)), {"out": (BH, S, d)})["out"]
+    got = harness("flash", q.dtype, {"q": q, "k": k, "v": v},
+                  (BH, S, T, d, dv, int(causal), window, repr(scale), group,
+                   nsplit, int(d % 8 == 0 and dv % 8 == 0), int(with_lse)),
+                  {"out": (BH, S, dv)})["out"]
+    if not with_lse:
+        return got
+    lse = np.fromfile(harness.last / "lse.bin", np.float32)
+    return got, torch.from_numpy(lse.reshape(BH, S))
 
 
 def _plain(q, k, v, group=1, **kw):
@@ -534,6 +541,88 @@ def test_flash_attention_rows_not_of_whole_chunks(harness):
     q, k, v = _qkv(31, 2, 70, 90, 36, "bfloat16")
     _close(_flash(harness, q, k, v, window=50),
            _plain(q, k, v, window=50), "bfloat16")
+
+
+def _grad_inputs(seed, BH, S, T, d, dv, group):
+    a = samples.kernel_inputs("flash_attention_grad", seed,
+                              q_shape=(BH, S, d), kv_shape=(BH // group, T, d),
+                              v_shape=(BH // group, T, dv),
+                              do_shape=(BH, S, dv))
+    return [torch.from_numpy(a[n]).to(BF16) for n in ("q", "k", "v", "do")]
+
+
+# the forward with the log-sum-exp: v of its own width (latent attention's
+# 192 beside 128), GQA, windows, split-KV, rows without keys
+@pytest.mark.parametrize("BH,S,T,d,dv,group,causal,window,nsplit", [
+    (2, 96, 96, 64, 64, 1, True, 0, 1),
+    (2, 80, 80, 192, 128, 1, True, 0, 1),
+    (4, 72, 72, 128, 128, 2, True, 24, 1),
+    (2, 40, 40, 40, 24, 2, False, 0, 1),       # not whole chunks; no mask
+    (2, 2, 256, 64, 64, 2, True, 0, 2),        # split-KV: the combine's lse
+])
+def test_flash_attention_forward_with_lse(harness, BH, S, T, d, dv, group,
+                                          causal, window, nsplit):
+    """The output is the forward-only call's, bit for bit, and lse is the
+    plain version's m + log(l) in f32."""
+    q, k, v, _ = _grad_inputs(41, BH, S, T, d, dv, group)
+    kw = dict(causal=causal, window=window, group=group, nsplit=nsplit)
+    out, lse = _flash(harness, q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, _flash(harness, q, k, v, **kw))
+    want, want_lse = _plain(q, k, v, group, causal=causal, window=window,
+                            with_lse=True)
+    _close(out, want, "bfloat16")
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _flash_bwd(harness, q, k, v, o, do, lse, *, causal=True, window=0,
+               group=1):
+    """The backward's two passes under the emulation: dq, dk, dv."""
+    BH, S, d = q.shape
+    T, dv = k.shape[1], v.shape[-1]
+    scale = float(np.float32(d ** -0.5))
+    got = harness("flash_bwd", BF16, {"q": q, "k": k, "v": v, "o": o,
+                                      "do": do},
+                  (BH, S, T, d, dv, int(causal), window, repr(scale), group,
+                   int(d % 8 == 0 and dv % 8 == 0)),
+                  {"dq": (BH, S, d), "dk": (BH // group, T, d),
+                   "dv": (BH // group, T, dv)}, extra={"lse": lse})
+    return got["dq"], got["dk"], got["dv"]
+
+
+# the backward: tiles crossed in both passes, GQA groups accumulated in
+# one block, the 192/128 pair, the column split (DP + DV > 320), windows,
+# queries offset (T > S), rows without keys (S > T), no mask, rows of
+# elements not whole 16-byte chunks
+@pytest.mark.parametrize("BH,S,T,d,dv,group,causal,window", [
+    (2, 130, 130, 64, 64, 1, True, 0),
+    (4, 96, 96, 128, 128, 2, True, 0),
+    (2, 100, 100, 192, 128, 1, True, 0),
+    (2, 72, 72, 192, 192, 1, True, 0),
+    (2, 64, 64, 256, 256, 2, True, 20),
+    (2, 64, 160, 64, 64, 1, True, 40),
+    (2, 96, 64, 64, 64, 1, True, 0),
+    (2, 70, 70, 40, 24, 2, False, 0),
+    (4, 80, 80, 160, 160, 4, False, 30),
+])
+def test_flash_attention_backward_kernel_code(harness, BH, S, T, d, dv,
+                                              group, causal, window):
+    """dq, dk, dv against the plain backward on the kernel's own o and lse,
+    at the bfloat16 tolerance; a query row without keys has dq 0."""
+    q, k, v, do = _grad_inputs(43, BH, S, T, d, dv, group)
+    o, lse = _flash(harness, q, k, v, causal=causal, window=window,
+                    group=group, with_lse=True)
+    got = _flash_bwd(harness, q, k, v, o, do, lse, causal=causal,
+                     window=window, group=group)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, group=group,
+                                        causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().amax())
+        assert err <= 2e-2 * float(w.float().abs().amax()) + 1e-3, (name, err)
+    if causal and S > T:
+        assert torch.equal(got[0][:, :S - T].float(),
+                           torch.zeros(BH, S - T, d))
 
 
 # ---------------------------------------------------------------------------

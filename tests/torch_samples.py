@@ -490,7 +490,9 @@ def kernel_inputs(kernel: str, seed: int, **shape) -> Dict[str, np.ndarray]:
 
     ``rmsnorm``: ``T, D, with_residual`` -> x, scale (and residual);
     ``grouped_matmul``: ``E, C, D, F`` -> x, w (scaled by 0.1);
-    ``flash_attention``: ``q_shape``, ``kv_shape`` -> q, k, v."""
+    ``flash_attention``: ``q_shape``, ``kv_shape`` -> q, k, v;
+    ``flash_attention_grad``: ``q_shape``, ``kv_shape``, ``v_shape``,
+    ``do_shape`` -> q, k, v, do."""
     rng = np.random.RandomState(seed)
     if kernel == "rmsnorm":
         T, D = shape["T"], shape["D"]
@@ -504,6 +506,12 @@ def kernel_inputs(kernel: str, seed: int, **shape) -> Dict[str, np.ndarray]:
         out = {"q": rng.randn(*shape["q_shape"]),
                "k": rng.randn(*shape["kv_shape"]),
                "v": rng.randn(*shape["kv_shape"])}
+    elif kernel == "flash_attention_grad":
+        # v and the output's gradient ``do`` of their own width
+        out = {"q": rng.randn(*shape["q_shape"]),
+               "k": rng.randn(*shape["kv_shape"]),
+               "v": rng.randn(*shape["v_shape"]),
+               "do": rng.randn(*shape["do_shape"])}
     else:
         raise ValueError(f"no inputs for kernel {kernel!r}")
     return {n: a.astype(np.float32) for n, a in out.items()}
